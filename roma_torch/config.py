@@ -1,0 +1,88 @@
+"""Typed configuration for full RoMa (a copy of the JAX package's dataclasses;
+the port imports nothing from it). Defaults must stay equal to the JAX
+package's, which `tests/test_torch_config.py` asserts."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+# (h, w) presets mirroring the reference resolution table
+RESOLUTION_PRESETS: Mapping[str, tuple[int, int]] = {
+    "low": (448, 448),
+    "medium": (560, 560),
+    "high": (672, 672),
+    "xfeat": (600, 800),
+    "big": (768, 1024),
+    "upsample": (864, 864),       # full-RoMa second pass
+    "upsample_high": (1344, 1344),
+    "tiny_bench": (480, 640),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GPConfig:
+    """Gaussian-process coarse matcher."""
+    gp_dim: int = 512
+    kernel_temperature: float = 0.2
+    sigma_noise: float = 0.1
+    basis: str = "fourier"
+
+
+@dataclasses.dataclass(frozen=True)
+class RefinerConfig:
+    """One ConvRefiner."""
+    in_dim: int
+    hidden_dim: int
+    displacement_emb_dim: int
+    local_corr_radius: int | None = None
+    kernel_size: int = 5
+    hidden_blocks: int = 8
+    dw: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class RomaConfig:
+    """Full RoMa: DINOv2-L coarse + VGG19 fine + GP + transformer decoder +
+    coarse-to-fine refiners."""
+    coarse_resolution: tuple[int, int] = RESOLUTION_PRESETS["medium"]
+    upsample_resolution: tuple[int, int] = RESOLUTION_PRESETS["upsample"]
+    upsample_preds: bool = True
+    symmetric: bool = True
+    attenuate_cert: bool = True
+    sample_thresh: float = 0.05
+    gp: GPConfig = GPConfig()
+    gp_dim: int = 512
+    feat_dim: int = 512
+    dinov2_depth: int = 24        # ViT-L; tests shrink this for speed
+    dinov2_dim: int = 1024
+    dinov2_heads: int = 16
+    decoder_dim: int = 1024       # gp_dim + feat_dim
+    cls_res: int = 64             # 64x64 anchor classification grid
+    num_decoder_blocks: int = 5
+    decoder_heads: int = 8
+    refine_init: float = 4.0      # delta-flow scaling
+    disp_emb_gain: float = 40.0 / 32.0  # displacement embedding scale
+    # windowed scale-1 warp gather: not ported yet, only False is accepted
+    smooth_warp_gather: bool | str = False
+    # per-scale refiners
+    refiners: Mapping[str, RefinerConfig] = dataclasses.field(
+        default_factory=lambda: {
+            "16": RefinerConfig(2 * 512 + 128 + 15 * 15, 2 * 512 + 128 + 15 * 15, 128, 7),
+            "8": RefinerConfig(2 * 512 + 64 + 7 * 7, 2 * 512 + 64 + 7 * 7, 64, 3),
+            "4": RefinerConfig(2 * 256 + 32 + 5 * 5, 2 * 256 + 32 + 5 * 5, 32, 2),
+            "2": RefinerConfig(2 * 64 + 16, 128 + 16, 16, None),
+            "1": RefinerConfig(2 * 9 + 6, 24, 6, None),
+        }
+    )
+    # 1x1 projections per scale: (in, out)
+    proj_dims: Mapping[str, tuple[int, int]] = dataclasses.field(
+        default_factory=lambda: {
+            "16": (1024, 512),
+            "8": (512, 512),
+            "4": (256, 256),
+            "2": (128, 64),
+            "1": (64, 9),
+        }
+    )
+    dtype: str = "bfloat16"

@@ -1,0 +1,134 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each source under ``roma_torch/csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into its own shared library with a plain C interface, at first
+use, into ``build/kernels/`` at the repo root, and loaded with ctypes. The
+library name carries a hash of the sources and flags, so an edited source
+is rebuilt and a stale library is never loaded. Nothing here runs at import
+time: the package imports on machines without ``nvcc`` or a GPU.
+
+Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
+and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+# kernel name -> CUDA source under csrc/
+SOURCES = {
+    "local_corr": "local_corr.cu",
+    "dw_chain": "dw_chain.cu",
+    "flash_attn": "flash_attn.cu",
+}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xptxas", "-v",  # registers, shared memory and spills, in build()'s report
+]
+
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("roma_torch kernels: nvcc not found (CUDA toolkit required)")
+    return path
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / SOURCES[name]).read_bytes())
+    h.update((CSRC / "common.cuh").read_bytes())
+    return BUILD_DIR / f"libroma_{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named kernels (default: all) that are not built yet, one
+    ``nvcc`` per source, all started together. Returns the compiler's
+    report for each source it compiled; raises with the compiler's output
+    if any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    reports, failures = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"--- {name} (nvcc exit {proc.returncode})\n{text}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = text
+    if failures:
+        raise RuntimeError("roma_torch kernel build failed:\n" + "\n".join(failures))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            lib.roma_error_string.restype = ctypes.c_char_p
+            lib.roma_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    if rc != 0:
+        msg = lib.roma_error_string(rc).decode()
+        raise RuntimeError(f"roma_torch kernel {name}: launch failed: {msg} ({rc})")
+    LAUNCHES[name] += 1
+
+
+def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
+            device: torch.device, contiguous: bool = True) -> None:
+    """Device, dtype, shape and layout checks shared by the wrappers."""
+    if t.device != device or device.type != "cuda":
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,36 @@
+"""Shared layer helpers.
+
+Parameters are stored in float32 (the checkpoint layout); each layer casts
+its weights to the compute dtype at call time, as the JAX package's
+``param_dtype=float32, dtype=bf16`` layers do. Normalisations run in
+float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Apply `conv` (NCHW) with input, weight and bias in `dtype`."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
+
+
+def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Inference BatchNorm (running statistics) in float32, NCHW."""
+    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last axis in float32."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)

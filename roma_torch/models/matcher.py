@@ -1,0 +1,329 @@
+"""Full RoMa: DINOv2-L coarse + VGG19 fine encoder, GP + transformer match
+decoder, coarse-to-fine ConvRefiners, and the two-pass matcher API.
+
+Module names follow the reference RoMa state_dict (``encoder.cnn``,
+``encoder.dinov2``, ``decoder.embedding_decoder``, ``decoder.gps.16``,
+``decoder.proj.{s}``, ``decoder.conv_refiner.{s}``). Images enter as
+(B, H, W, 3) and flows/certainties leave as (B, H, W, 2|1), as in the JAX
+package; features are NCHW in between. Inference only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+from torch.profiler import record_function
+
+from roma_torch.config import RomaConfig
+from roma_torch.device import resolve_device
+from roma_torch.models.dinov2 import DinoViT
+from roma_torch.models.gp import GP
+from roma_torch.models.layers import batch_norm, conv2d
+from roma_torch.models.refiner import ConvRefiner
+from roma_torch.models.transformer import TransformerDecoder
+from roma_torch.models.vgg import VGG19
+from roma_torch.ops.corr import coord_grid
+from roma_torch.ops.resize import interpolate_bilinear, resize_bicubic
+from roma_torch.utils.geometry import cls_to_flow_refine, normalized_to_pixel
+from roma_torch.utils.sampling import sample_matches
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def _dtype(cfg: RomaConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class CNNandDinov2(nn.Module):
+    """Feature pyramid: VGG19 {1,2,4,8} + DINOv2 patch tokens at 16.
+    ``coarse=False`` (the upsample pass) skips DINOv2."""
+
+    def __init__(self, cfg: RomaConfig):
+        super().__init__()
+        dt = _dtype(cfg)
+        self.cnn = VGG19(dtype=dt)
+        self.dinov2 = DinoViT(embed_dim=cfg.dinov2_dim, depth=cfg.dinov2_depth,
+                              num_heads=cfg.dinov2_heads, dtype=dt)
+
+    def forward(self, x: torch.Tensor, coarse: bool = True) -> dict[int, torch.Tensor]:
+        with record_function("roma.vgg"):
+            pyramid = self.cnn(x)
+        if coarse:
+            with record_function("roma.dinov2"):
+                pyramid[16] = self.dinov2(x).permute(0, 3, 1, 2)
+        return pyramid
+
+
+class Decoder(nn.Module):
+    """Coarse-to-fine decode: GP + transformer at 1/16, refiners down to 1/1."""
+
+    def __init__(self, cfg: RomaConfig):
+        super().__init__()
+        self.cfg = cfg
+        dt = self.dtype = _dtype(cfg)
+        self.embedding_decoder = TransformerDecoder(
+            hidden_dim=cfg.decoder_dim, out_dim=cfg.cls_res**2 + 1,
+            num_blocks=cfg.num_decoder_blocks, num_heads=cfg.decoder_heads, dtype=dt,
+        )
+        self.gps = nn.ModuleDict({"16": GP(gp_dim=cfg.gp.gp_dim, T=cfg.gp.kernel_temperature,
+                                           sigma_noise=cfg.gp.sigma_noise)})
+        self.proj = nn.ModuleDict({
+            s: nn.Sequential(nn.Conv2d(i, o, 1), nn.BatchNorm2d(o))
+            for s, (i, o) in cfg.proj_dims.items()
+        })
+        self.conv_refiner = nn.ModuleDict({
+            s: ConvRefiner(rc.in_dim, rc.hidden_dim, rc.displacement_emb_dim,
+                           rc.local_corr_radius, rc.hidden_blocks, rc.kernel_size,
+                           cfg.disp_emb_gain, dtype=dt)
+            for s, rc in cfg.refiners.items()
+        })
+
+    def _proj(self, s: str, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self.proj[s]
+        y = conv2d(conv, x, self.dtype)
+        return batch_norm(bn, y).to(y.dtype)
+
+    def forward(
+        self,
+        f1: Mapping[int, torch.Tensor],
+        f2: Mapping[int, torch.Tensor],
+        upsample: bool = False,
+        flow: torch.Tensor | None = None,
+        certainty: torch.Tensor | None = None,
+        scale_factor: float = 1.0,
+    ) -> dict[int, dict[str, torch.Tensor]]:
+        c = self.cfg
+        scales = ["8", "4", "2", "1"] if upsample else ["16", "8", "4", "2", "1"]
+        sizes = {s: tuple(f1[s].shape[-2:]) for s in f1}
+        # delta-flow normalization uses the FULL-RES dims
+        h_full, w_full = sizes[1]
+        coarsest = int(scales[0])
+        b = f1[coarsest].shape[0]
+        h_c, w_c = sizes[coarsest]
+        dev = f1[coarsest].device
+
+        if not upsample:
+            flow = coord_grid(h_c, w_c, device=dev).expand(b, h_c, w_c, 2)
+            certainty = torch.zeros((b, h_c, w_c, 1), dtype=torch.float32, device=dev)
+        else:
+            flow = interpolate_bilinear(flow, (h_c, w_c))
+            certainty = interpolate_bilinear(certainty, (h_c, w_c))
+
+        corresps: dict[int, dict[str, torch.Tensor]] = {}
+        for s in scales:
+            ins = int(s)
+            f1_s = self._proj(s, f1[ins])
+            f2_s = self._proj(s, f2[ins])
+
+            if ins == 16:
+                a_hw = f1_s.permute(0, 2, 3, 1)
+                with record_function("roma.gp"):
+                    gp_posterior = self.gps["16"](a_hw, f2_s.permute(0, 2, 3, 1))
+                with record_function("roma.match_decoder"):
+                    gm_cls, certainty = self.embedding_decoder(gp_posterior, a_hw)
+                    flow = cls_to_flow_refine(gm_cls)
+
+            if s in self.conv_refiner:
+                with record_function(f"roma.refiner{s}"):
+                    delta_flow, delta_cert = self.conv_refiner[s](
+                        f1_s, f2_s, flow, scale_factor=scale_factor
+                    )
+                # displacement in normalized units: ins * delta / (refine_init * full_res)
+                disp = ins * torch.stack(
+                    [delta_flow[..., 0] / (c.refine_init * w_full),
+                     delta_flow[..., 1] / (c.refine_init * h_full)], dim=-1,
+                )
+                flow = flow + disp
+                certainty = certainty + delta_cert
+
+            corresps[ins] = {"flow": flow, "certainty": certainty}
+            if s != "1":
+                nh, nw = sizes[ins // 2]
+                flow = interpolate_bilinear(flow, (nh, nw))
+                certainty = interpolate_bilinear(certainty, (nh, nw))
+        return corresps
+
+
+class RomaModel(nn.Module):
+    """Encoder + decoder; one forward = one decode pass at one resolution."""
+
+    def __init__(self, cfg: RomaConfig = RomaConfig()):
+        super().__init__()
+        if cfg.smooth_warp_gather:
+            raise NotImplementedError("smooth_warp_gather is not ported yet")
+        self.cfg = cfg
+        self.encoder = CNNandDinov2(cfg)
+        self.decoder = Decoder(cfg)
+
+    def forward(
+        self,
+        im_a: torch.Tensor,
+        im_b: torch.Tensor,
+        symmetric: bool = True,
+        upsample: bool = False,
+        flow: torch.Tensor | None = None,
+        certainty: torch.Tensor | None = None,
+        scale_factor: float = 1.0,
+    ):
+        """ImageNet-normalized (B, H, W, 3) images. symmetric: decode A->B
+        and B->A in one batch; outputs then have leading dim 2B."""
+        B = im_a.shape[0]
+        x = torch.cat([im_a, im_b], dim=0).permute(0, 3, 1, 2)
+        pyramid = self.encoder(x, coarse=not upsample)
+        if symmetric:
+            f_q = pyramid
+            f_s = {k: torch.cat([v[B:], v[:B]], dim=0) for k, v in pyramid.items()}
+        else:
+            f_q = {k: v[:B] for k, v in pyramid.items()}
+            f_s = {k: v[B:] for k, v in pyramid.items()}
+        return self.decoder(f_q, f_s, upsample=upsample, flow=flow,
+                            certainty=certainty, scale_factor=scale_factor)
+
+
+class RomaMatcher:
+    """User-facing full-RoMa matcher: two-pass coarse -> upsample inference,
+    certainty attenuation, symmetric warp assembly, balanced sampling."""
+
+    def __init__(self, model: RomaModel, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = model.cfg
+
+    # ---- preprocessing
+    def _to_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               device=self.device)
+
+    def normalize(self, im: torch.Tensor) -> torch.Tensor:
+        mean = torch.as_tensor(IMAGENET_MEAN, device=im.device)
+        std = torch.as_tensor(IMAGENET_STD, device=im.device)
+        return (im - mean) / std
+
+    def _preprocess(self, im_a, im_b, *, hs: int, ws: int):
+        if im_a.shape[1:3] == im_b.shape[1:3]:
+            x = torch.cat([im_a, im_b], dim=0)
+            x = self.normalize(resize_bicubic(x, (hs, ws)))
+            B = im_a.shape[0]
+            return x[:B], x[B:]
+        a = self.normalize(resize_bicubic(im_a, (hs, ws)))
+        b = self.normalize(resize_bicubic(im_b, (hs, ws)))
+        return a, b
+
+    @staticmethod
+    def host_resize_np(pil_im, hs: int, ws: int) -> np.ndarray:
+        """Protocol host resize: PIL bicubic -> (hs, ws, 3) uint8."""
+        from PIL import Image
+
+        r = pil_im.convert("RGB").resize((ws, hs), Image.BICUBIC)
+        return np.array(r, np.uint8)
+
+    def _as_normalized(self, x) -> torch.Tensor:
+        x = self._to_device(x)
+        if x.dtype == torch.uint8:
+            return self.normalize(x.float() / 255.0)
+        return x.float()
+
+    # ---- postprocessing
+    @staticmethod
+    def _postprocess(flow, certainty, cert16, *, hs, ws, symmetric, attenuate):
+        """Final-scale outputs -> (warp, certainty)."""
+        B = flow.shape[0] // 2 if symmetric else flow.shape[0]
+        if attenuate:
+            lrc = interpolate_bilinear(cert16, (hs, ws))
+            certainty = certainty - 0.5 * lrc * (lrc < 0)
+        certainty = torch.sigmoid(certainty[..., 0])
+        # zero certainty for out-of-bounds targets, clamp flow
+        oob = (flow.abs() > 1).any(dim=-1)
+        certainty = torch.where(oob, torch.zeros_like(certainty), certainty)
+        flow = flow.clamp(-1, 1)
+        grid = coord_grid(hs, ws, device=flow.device).expand(B, hs, ws, 2)
+        if symmetric:
+            q_warp = torch.cat([grid, flow[:B]], dim=-1)
+            s_warp = torch.cat([flow[B:], grid], dim=-1)
+            warp = torch.cat([q_warp, s_warp], dim=2)  # side by side in W
+            certainty = torch.cat([certainty[:B], certainty[B:]], dim=2)
+        else:
+            warp = torch.cat([grid, flow], dim=-1)
+        return warp, certainty
+
+    # ---- matching
+    @torch.inference_mode()
+    def match_prepped(self, a, b, a2=None, b2=None):
+        """Two-pass match on prepped batches: a/b (B, hc, wc, 3) at the
+        coarse resolution, a2/b2 at the upsample resolution (needed iff
+        cfg.upsample_preds); ImageNet-normalized float or uint8 [0, 255].
+        Returns batched (warp, certainty)."""
+        cfg = self.cfg
+        hs, ws = cfg.coarse_resolution
+        with record_function("roma.coarse_pass"):
+            corresps = self.model(self._as_normalized(a), self._as_normalized(b),
+                                  symmetric=cfg.symmetric)
+        cert16 = corresps[16]["certainty"] if cfg.attenuate_cert else None
+        if cfg.upsample_preds:
+            hs, ws = cfg.upsample_resolution
+            finest = corresps[1]
+            sf = math.sqrt((hs * ws) / (cfg.coarse_resolution[0] * cfg.coarse_resolution[1]))
+            with record_function("roma.upsample_pass"):
+                corresps = self.model(
+                    self._as_normalized(a2), self._as_normalized(b2),
+                    symmetric=cfg.symmetric, upsample=True, flow=finest["flow"],
+                    certainty=finest["certainty"], scale_factor=sf,
+                )
+        if cert16 is None:
+            cert16 = torch.zeros_like(corresps[1]["certainty"][:, :1, :1])
+        with record_function("roma.postprocess"):
+            return self._postprocess(
+                corresps[1]["flow"], corresps[1]["certainty"], cert16, hs=hs, ws=ws,
+                symmetric=cfg.symmetric, attenuate=cfg.attenuate_cert,
+            )
+
+    @torch.inference_mode()
+    def match(self, im_a, im_b, batched: bool = False):
+        """im_a, im_b: (H, W, 3) or (B, H, W, 3) float [0, 1] (tensor or
+        array), image paths, or PIL images. Returns (warp, certainty):
+        symmetric warp (B, hs, 2*ws, 4) and certainty (B, hs, 2*ws) at the
+        output resolution (upsample_resolution when two-pass)."""
+        from PIL import Image
+
+        if isinstance(im_a, (str, bytes)) or hasattr(im_a, "__fspath__"):
+            im_a = Image.open(im_a)
+            im_b = Image.open(im_b)
+        cfg = self.cfg
+        hc, wc = cfg.coarse_resolution
+        hu, wu = cfg.upsample_resolution
+        if isinstance(im_a, Image.Image):
+            a, b = (self.host_resize_np(im, hc, wc)[None] for im in (im_a, im_b))
+            a2 = b2 = None
+            if cfg.upsample_preds:
+                a2, b2 = (self.host_resize_np(im, hu, wu)[None] for im in (im_a, im_b))
+        else:
+            im_a = self._to_device(im_a).float()
+            im_b = self._to_device(im_b).float()
+            if im_a.ndim == 3:
+                im_a, im_b = im_a[None], im_b[None]
+            with record_function("roma.preprocess"):
+                a, b = self._preprocess(im_a, im_b, hs=hc, ws=wc)
+                a2 = b2 = None
+                if cfg.upsample_preds:
+                    a2, b2 = self._preprocess(im_a, im_b, hs=hu, ws=wu)
+        warp, certainty = self.match_prepped(a, b, a2, b2)
+        if batched:
+            return warp, certainty
+        return warp[0], certainty[0]
+
+    @torch.inference_mode()
+    def sample(self, warp, certainty, num: int = 10000,
+               generator: torch.Generator | None = None):
+        return sample_matches(warp, certainty, num=num,
+                              sample_thresh=self.cfg.sample_thresh, generator=generator)
+
+    def to_pixel_coordinates(self, coords, h_a, w_a, h_b=None, w_b=None):
+        if coords.shape[-1] == 2:
+            return normalized_to_pixel(coords, h_a, w_a)
+        return (normalized_to_pixel(coords[..., :2], h_a, w_a),
+                normalized_to_pixel(coords[..., 2:], h_b, w_b))

@@ -1,0 +1,122 @@
+"""Weight carry from the JAX package's variables to this package's state_dict.
+
+`state_dict_from_jax` is the exact inverse of the JAX package's
+``models/port.py::port_roma``: flax HWIO conv kernels -> OIHW, dense (I, O)
+-> (O, I), BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
+running_var``. The port's modules carry the reference RoMa key names, so the
+result loads with ``RomaModel.load_state_dict`` and a reference checkpoint
+would load the same way.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+# torchvision vgg19_bn().features conv indices for the first 4 stages
+VGG_CONV_IDX = [0, 3, 7, 10, 14, 17, 20, 23, 27, 30, 33, 36]
+
+
+def conv_weight(k) -> torch.Tensor:
+    """flax (kh, kw, I, O) -> torch Conv2d (O, I, kh, kw)."""
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(k), (3, 2, 0, 1))))
+
+
+def linear_weight(k) -> torch.Tensor:
+    """flax Dense (I, O) -> torch Linear (O, I)."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(k).T))
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _count(tree: Mapping[str, Any], prefix: str) -> int:
+    return sum(1 for k in tree if k.startswith(prefix) and k[len(prefix):].isdigit())
+
+
+class _Writer:
+    def __init__(self):
+        self.sd: dict[str, torch.Tensor] = {}
+
+    def conv(self, key: str, p: Mapping[str, Any]) -> None:
+        self.sd[f"{key}.weight"] = conv_weight(p["kernel"])
+        if "bias" in p:
+            self.sd[f"{key}.bias"] = _t(p["bias"])
+
+    def linear(self, key: str, p: Mapping[str, Any]) -> None:
+        self.sd[f"{key}.weight"] = linear_weight(p["kernel"])
+        if "bias" in p:
+            self.sd[f"{key}.bias"] = _t(p["bias"])
+
+    def norm(self, key: str, p: Mapping[str, Any]) -> None:
+        self.sd[f"{key}.weight"] = _t(p["scale"])
+        self.sd[f"{key}.bias"] = _t(p["bias"])
+
+    def batchnorm(self, key: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+        self.norm(key, p)
+        self.sd[f"{key}.running_mean"] = _t(s["mean"])
+        self.sd[f"{key}.running_var"] = _t(s["var"])
+        self.sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def vit_block(self, key: str, p: Mapping[str, Any]) -> None:
+        self.norm(f"{key}.norm1", p["norm1"])
+        self.linear(f"{key}.attn.qkv", p["attn"]["qkv"])
+        self.linear(f"{key}.attn.proj", p["attn"]["proj"])
+        self.norm(f"{key}.norm2", p["norm2"])
+        self.linear(f"{key}.mlp.fc1", p["mlp"]["fc1"])
+        self.linear(f"{key}.mlp.fc2", p["mlp"]["fc2"])
+        for ls in ("ls1", "ls2"):
+            if ls in p:
+                self.sd[f"{key}.{ls}.gamma"] = _t(p[ls]["gamma"])
+
+
+def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX `RomaModel` variables ({"params", "batch_stats"}, numpy leaves)
+    -> this package's `RomaModel` state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    w = _Writer()
+
+    cnn_p, cnn_s = params["encoder"]["cnn"], stats["encoder"]["cnn"]
+    for j, idx in enumerate(VGG_CONV_IDX):
+        w.conv(f"encoder.cnn.layers.{idx}", cnn_p[f"conv_{j}"])
+        w.batchnorm(f"encoder.cnn.layers.{idx + 1}", cnn_p[f"bn_{j}"], cnn_s[f"bn_{j}"])
+
+    if "dinov2" in params["encoder"]:
+        dp = params["encoder"]["dinov2"]
+        w.sd["encoder.dinov2.cls_token"] = _t(dp["cls_token"])
+        w.sd["encoder.dinov2.pos_embed"] = _t(dp["pos_embed"])
+        w.conv("encoder.dinov2.patch_embed.proj", dp["patch_embed"])
+        for i in range(_count(dp, "block_")):
+            w.vit_block(f"encoder.dinov2.blocks.{i}", dp[f"block_{i}"])
+        w.norm("encoder.dinov2.norm", dp["norm"])
+
+    dec_p, dec_s = params["decoder"], stats["decoder"]
+    ed = dec_p["embedding_decoder"]
+    for i in range(_count(ed, "block_")):
+        w.vit_block(f"decoder.embedding_decoder.blocks.{i}", ed[f"block_{i}"])
+    w.linear("decoder.embedding_decoder.to_out", ed["to_out"])
+    w.conv("decoder.gps.16.pos_conv", dec_p["gp16"]["pos_conv"])
+
+    for name in sorted(k for k in dec_p if k.startswith("proj_")):
+        s = name[len("proj_"):]
+        w.conv(f"decoder.proj.{s}.0", dec_p[name]["layers_0"])
+        w.batchnorm(f"decoder.proj.{s}.1", dec_p[name]["layers_1"],
+                    dec_s[name]["layers_1"])
+
+    for name in sorted(k for k in dec_p if k.startswith("refiner_")):
+        s = name[len("refiner_"):]
+        rp, rs = dec_p[name], dec_s[name]
+        key = f"decoder.conv_refiner.{s}"
+        w.conv(f"{key}.disp_emb", rp["disp_emb"])
+        blocks = [("block1", "block_in")] + [
+            (f"hidden_blocks.{i}", f"block_{i}") for i in range(_count(rp, "block_"))
+        ]
+        for dst, src in blocks:
+            w.conv(f"{key}.{dst}.0", rp[src]["conv1"])
+            w.batchnorm(f"{key}.{dst}.1", rp[src]["norm"], rs[src]["norm"])
+            w.conv(f"{key}.{dst}.3", rp[src]["conv2"])
+        w.conv(f"{key}.out_conv", rp["out_conv"])
+    return w.sd

@@ -1,0 +1,125 @@
+"""The plain versions of the port's three kernels against the JAX functions,
+run as the JAX package's own tests run them on the CPU: the Pallas kernels
+in interpret mode. The wrappers take these plain versions for CPU tensors.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from roma_tpu.ops.pallas.block_gather import local_correlation_dma
+from roma_tpu.ops.pallas.depthwise import dw5x5_mm_chain as j_chain
+from roma_torch.kernels import attention as tattn
+from roma_torch.kernels import dw_chain as tchain
+from roma_torch.kernels import local_corr as tlc
+from roma_torch.ops.local_corr import local_correlation as t_local_corr
+
+
+def _bf16_np(a):
+    """Round float32 data to bf16 values, kept as float32 numpy."""
+    return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize(
+    "shape,r",
+    [((2, 12, 16, 128), 3), ((1, 10, 10, 256), 2), ((1, 18, 18, 128), 7),
+     ((2, 9, 11, 128), 1)],
+)
+def test_local_corr_plain_matches_pallas_interpret(rng, shape, r):
+    """bf16 features, fp32 out, flows reaching well outside the image and
+    some far out of range (exact zeros). Tolerance 1e-5: fp32 dots in
+    another summation order."""
+    B, H, W, C = shape
+    f0 = _bf16_np(rng.standard_normal(shape))
+    f1 = _bf16_np(rng.standard_normal(shape))
+    flow = rng.uniform(-1.7, 1.7, (B, H, W, 2)).astype(np.float32)
+    flow[0, 0, 0] = [1e5, -3e4]
+    flow[0, 1, 1] = [-7.0, 0.2]
+    ref = np.asarray(local_correlation_dma(
+        jnp.asarray(f0, jnp.bfloat16), jnp.asarray(f1, jnp.bfloat16), r,
+        jnp.asarray(flow), interpret=True))
+    tf0 = torch.from_numpy(f0).to(torch.bfloat16)
+    tf1 = torch.from_numpy(f1).to(torch.bfloat16)
+    got = tlc.local_correlation(tf0, tf1, r, torch.from_numpy(flow))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+    assert np.all(got.numpy()[0, 0, 0] == 0.0)
+    np.testing.assert_array_equal(got.numpy(), t_local_corr(tf0, tf1, r, torch.from_numpy(flow)).numpy())
+
+
+def test_local_corr_gate():
+    assert tlc.use_kernel(7, 512) and tlc.use_kernel(2, 256)
+    assert not tlc.use_kernel(8, 512)
+    assert not tlc.use_kernel(3, 200)
+
+
+@pytest.mark.parametrize("shape,n", [((2, 21, 19, 24), 3), ((1, 9, 40, 24), 2)])
+def test_dw_chain_plain_matches_pallas_interpret(rng, shape, n):
+    """C = 24 chained blocks, bf16 activations and weights, fp32 affine.
+    Both versions round at the same two points; tolerance 2e-2 + 2e-2 rel
+    (one bf16 ulp of the block output, after fp32 sums in another order)."""
+    B, H, W, C = shape
+    x = _bf16_np(rng.standard_normal(shape))
+    ws = _bf16_np(rng.standard_normal((n, 5, 5, C)) * 0.2)
+    scales = rng.uniform(0.5, 1.5, (n, C)).astype(np.float32)
+    shifts = (rng.standard_normal((n, C)) * 0.1).astype(np.float32)
+    ms = _bf16_np(rng.standard_normal((n, C, C)) * 0.2)
+    biases = (rng.standard_normal((n, C)) * 0.1).astype(np.float32)
+    ref = np.asarray(j_chain(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(ws, jnp.bfloat16), jnp.asarray(scales),
+        jnp.asarray(shifts), jnp.asarray(ms, jnp.bfloat16), jnp.asarray(biases),
+        interpret=True), np.float32)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    got = tchain.dw5x5_mm_chain(bf(x), bf(ws), torch.from_numpy(scales),
+                                torch.from_numpy(shifts), bf(ms), torch.from_numpy(biases))
+    assert got.shape == (B, H, C, W) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=2e-2, rtol=2e-2)
+
+
+def test_dw_chain_plain_fp32_equals_block_loop(rng):
+    """In float32 the chain is exactly the loop of single blocks, and one
+    block equals depthwise conv -> affine -> ReLU -> 1x1 written with
+    conv2d (tolerance 1e-4 abs, 1e-5 rel)."""
+    B, C, H, W = 1, 24, 7, 9
+    x = torch.from_numpy(rng.standard_normal((B, C, H, W)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 5, 5, C)).astype(np.float32))
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, (2, C)).astype(np.float32))
+    sh = torch.from_numpy(rng.standard_normal((2, C)).astype(np.float32))
+    m = torch.from_numpy(rng.standard_normal((2, C, C)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, C)).astype(np.float32))
+    got = tchain.chain_nchw(x, w, sc, sh, m, b)
+    y = x
+    for j in range(2):
+        z = torch.nn.functional.conv2d(y, w[j].permute(2, 0, 1)[:, None], padding=2, groups=C)
+        z = torch.relu(z * sc[j][:, None, None] + sh[j][:, None, None])
+        y = torch.nn.functional.conv2d(z, m[j].T[:, :, None, None], b[j])
+    np.testing.assert_allclose(got.numpy(), y.numpy(), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,h,d", [(257, 2, 64), (130, 2, 128), (65, 1, 64)])
+def test_attention_plain_matches_pallas_interpret(rng, n, h, d):
+    """Ragged N (not a multiple of 64 or 128), both head widths, fp32.
+    Tolerance 2e-3, as the JAX package's own flash-attention test."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from roma_tpu.models.transformer import _flash_attention
+
+    q, k, v = (rng.standard_normal((1, n, h, d)).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = tattn.attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-3, rtol=0)
+    exact = np.asarray(jax.nn.dot_product_attention(q, k, v))
+    np.testing.assert_allclose(got.numpy(), exact, atol=1e-5, rtol=0)
+
+
+def test_attention_plain_takes_strided_qkv_views(rng):
+    """The model hands the wrapper views of a fused qkv projection."""
+    B, N, H, d = 2, 33, 2, 64
+    qkv = torch.from_numpy(rng.standard_normal((B, N, 3, H, d)).astype(np.float32))
+    got = tattn.attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    ref = tattn.attention_plain(*(qkv[:, :, i].contiguous() for i in range(3)))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=0, rtol=0)
