@@ -4,22 +4,29 @@
     python3 chip_smoke.py [--profile] [--out DIR]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the three CUDA kernels from roma_torch/csrc (one nvcc each, in
+2. builds the five CUDA kernels from roma_torch/csrc (one nvcc each, in
    parallel) into build/kernels/;
 3. builds full-width roma_outdoor() (ViT-L/14 24 blocks, 560 -> 864,
    symmetric, bf16) with random weights from seed 0;
 4. holds every kernel against its plain PyTorch version at each shape the
-   main path gives it (2 pairs per match), and times the kernel, the plain
-   version and, where one exists, the single PyTorch call computing the
-   same function (SDPA for attention);
-5. runs RomaMatcher.match on 2 pairs: once to warm up, once with the launch
-   counters reset just before it and read just after it (each kernel must
-   show exactly its expected launches), and 3 more times for the rate;
-   with --profile, one more run under torch.profiler;
-6. checks the outputs (shapes, finite, certainty in [0, 1], sampling) and
-   holds the debug-size model on the GPU against the same weights run on
-   the CPU through the plain versions;
-7. prints the kernels JSON line, then {"ok": true, "device": ...} last.
+   main paths give it (2 pairs per full-RoMa match, 8 pairs per Tiny RoMa
+   match), and times the kernel, the plain version and, where one exists,
+   the single PyTorch call computing the same function (SDPA for attention
+   and the correlation softmax, F.grid_sample for the windowed gather);
+5. default full RoMa: RomaMatcher.match on 2 pairs, once to warm up, once
+   with the launch counters reset just before it and read just after it
+   (each kernel must show exactly its expected launches), and 3 more times
+   for the rate; with --profile, one more run under torch.profiler (also
+   for Tiny RoMa below); then the outputs (shapes, finite, certainty in
+   [0, 1], sampling) and the debug-size model on the GPU against the same
+   weights on the CPU;
+6. Tiny RoMa v1 (fused_kernel=True) on 8 pairs at 480x640, counted the same
+   way (one correlation-softmax launch, nothing else), timed, beside the
+   same weights with fused_kernel=False, plus one 1056x1920 pair and a
+   small GPU-vs-CPU check;
+7. full RoMa with smooth_warp_gather="fast": counted (2 windowed-gather
+   launches with 5/18/29 of the others), timed, outputs checked;
+8. prints the kernels JSON line, then {"ok": true, "device": ...} last.
 
 Any failure exits non-zero before the last line. Detailed per-shape results
 go to DIR/chip_smoke.json (default results/chip_smoke/).
@@ -39,6 +46,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 PAIRS = 2                  # pairs per match(); symmetric -> 4 images per pass
+TINY_PAIRS = 8             # pairs per Tiny RoMa match()
+TINY_HW = (480, 640)       # RESOLUTION_PRESETS["tiny_bench"]
+MEGAPIXEL_HW = (1056, 1920)
 SEED = 0                   # weights and data
 
 # kernel -> (TPU kernel it replaces, CUDA source)
@@ -49,6 +59,10 @@ KERNELS = {
                  "roma_torch/csrc/dw_chain.cu"),
     "flash_attn": ("roma_tpu/models/transformer.py:22",
                    "roma_torch/csrc/flash_attn.cu"),
+    "corr_softmax": ("roma_tpu/ops/pallas/corr_softmax.py:69",
+                     "roma_torch/csrc/corr_softmax.cu"),
+    "windowed_sample": ("roma_tpu/ops/pallas/windowed_sample.py:266",
+                        "roma_torch/csrc/windowed_sample.cu"),
 }
 
 
@@ -207,6 +221,143 @@ def check_flash_attn(dev, gen, cfg):
     return rows
 
 
+def check_corr_softmax(dev, gen):
+    """Tiny RoMa's coarse warp: 8 pairs at 480x640 (L = 60 x 80) and one
+    pair at 1056x1920 (L = 132 x 240), fp32 features, the real coord_grid.
+    Tolerance 1e-4 absolute on normalized coordinates (fp32 sums in another
+    order; the plain volume at the megapixel shape is ~4 GB)."""
+    import torch
+    import torch.nn.functional as F
+
+    from roma_torch.kernels import corr_softmax as cs
+    from roma_torch.ops.corr import coord_grid
+
+    # ragged L0 and L1 against the kernel's 128-row and 64-column tiles, and
+    # the narrower channel counts, checked for correctness only
+    ragged = []
+    for B, L0, L1, C in ((2, 1000, 700, 64), (1, 129, 65, 32), (2, 60, 48, 16)):
+        f0 = torch.randn((B, L0, C), generator=gen, device=dev)
+        f1 = torch.randn((B, L1, C), generator=gen, device=dev)
+        grid = torch.rand((L1, 2), generator=gen, device=dev) * 2 - 1
+        err = (cs.fused_pos_embed(f0, f1, grid) - cs.fused_pos_embed_plain(f0, f1, grid))
+        ragged.append(err.abs().max().item())
+        fail_if(not math.isfinite(ragged[-1]) or ragged[-1] > 1e-4,
+                f"corr_softmax ragged {(B, L0, L1, C)}: max_abs_err {ragged[-1]}")
+    rows = []
+    for label, B, (H, W), calls in (("tiny_bench 8 pairs", TINY_PAIRS, TINY_HW, 1),
+                                    ("megapixel 1 pair", 1, MEGAPIXEL_HW, 0)):
+        h, w = H // 8, W // 8
+        L, C = h * w, 64
+        f0 = torch.randn((B, L, C), generator=gen, device=dev)
+        f1 = torch.randn((B, L, C), generator=gen, device=dev)
+        grid = coord_grid(h, w, device=dev).reshape(L, 2)
+        got = cs.fused_pos_embed(f0, f1, grid)
+        ref = cs.fused_pos_embed_plain(f0, f1, grid)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        fail_if(not math.isfinite(err) or err > 1e-4, f"corr_softmax {label}: max_abs_err {err}")
+        del ref
+        # library yardstick: SDPA with the grid zero-padded to C = 64 columns
+        # (a value width every SDPA backend takes with fp32 inputs)
+        q, k = f0[:, None], f1[:, None]
+        v = F.pad(grid, (0, C - 2))[None, None].expand(B, 1, L, C).contiguous()
+        lib = F.scaled_dot_product_attention(q, k, v)[:, 0, :, :2]
+        torch.cuda.synchronize()
+        flops = 2.0 * B * L * L * C
+        nbytes = 4.0 * (2 * B * L * C + 2 * L + 2 * B * L)
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(shape=label, dims=[B, L, L, C], calls=calls,
+                         max_abs_err=max(err, *ragged), tol=1e-4, ragged_max_abs_err=ragged,
+                         sdpa_max_abs_diff=(lib - got).abs().max().item(),
+                         ms=cuda_ms(lambda: cs.fused_pos_embed(f0, f1, grid), 5),
+                         plain_ms=cuda_ms(lambda: cs.fused_pos_embed_plain(f0, f1, grid), 2, 1),
+                         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5),
+                         bound_ms=b_ms, bound_by=b_by))
+        del f0, f1, q, k, v, lib, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def smooth_sine_grid(B: int, H: int, W: int, dev):
+    """Identity + slow sinusoidal displacement, targets clipped in-bounds:
+    every (8, 128) tile is window-smooth."""
+    import torch
+
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    dx = 2.5 * torch.sin(ys / 17.0) + 1.7 * torch.cos(xs / 29.0)
+    dy = 1.5 * torch.cos(ys / 23.0) - 2.0 * torch.sin(xs / 31.0)
+    tx = torch.clamp(xs + dx, 1.0, W - 2.0)
+    ty = torch.clamp(ys + dy, 1.0, H - 2.0)
+    g = torch.stack([2 * (tx + 0.5) / W - 1, 2 * (ty + 0.5) / H - 1], dim=-1)
+    return g[None].expand(B, H, W, 2).contiguous()
+
+
+def check_windowed_sample(dev, gen, cfg):
+    """The scale-1 warp of both passes: feat (4, 9, h, h) bf16, grid
+    (4, h, h, 2) at h = 560 and 864. On a smooth flow "exact" must find ok,
+    launch once and equal F.grid_sample, "fast" must equal the plain
+    version; on a random flow "fast" must equal the plain version and
+    "exact" must launch nothing and equal F.grid_sample. Tolerance: one bf16
+    ulp at the output's largest magnitude, 2^-7 x max(1, max|ref|). The
+    kernel and the plain version do the same float32 arithmetic in the same
+    order and round once to bf16 (so they should agree exactly);
+    F.grid_sample's float32 sums in another order can move that rounding by
+    one ulp."""
+    import torch
+    import torch.nn.functional as F
+
+    from roma_torch.kernels import LAUNCHES
+    from roma_torch.kernels import windowed_sample as kws
+    from roma_torch.ops import windowed_sample as ows
+    from roma_torch.ops.grid_sample import grid_sample_nchw
+
+    B, C = 2 * PAIRS, cfg.proj_dims["1"][1]
+    rows = []
+
+    def err_of(got, ref, what):
+        tol = 2.0 ** -7 * max(1.0, ref.float().abs().max().item())
+        err = (got.float() - ref.float()).abs().max().item()
+        fail_if(not math.isfinite(err) or err > tol, f"windowed_sample {what}: max_abs_err {err} > {tol}")
+        return err, tol
+
+    for label, h in (("coarse s1", cfg.coarse_resolution[0]),
+                     ("upsample s1", cfg.upsample_resolution[0])):
+        feat = torch.randn((B, C, h, h), generator=gen, device=dev).to(torch.bfloat16)
+        smooth = smooth_sine_grid(B, h, h, dev)
+        rough = (torch.rand((B, h, h, 2), generator=gen, device=dev) * 2 - 1).contiguous()
+        kernel_errs, gs_errs, tols = [], [], []
+        for name, grid in (("smooth", smooth), ("random", rough)):
+            n0 = LAUNCHES["windowed_sample"]
+            got, ok = kws.grid_sample_smooth_nchw(feat, grid, "exact", with_ok=True)
+            torch.cuda.synchronize()
+            launched = LAUNCHES["windowed_sample"] - n0
+            fail_if(bool(ok) != (name == "smooth") or launched != int(name == "smooth"),
+                    f"windowed_sample {label} {name}: exact ok={bool(ok)}, {launched} launches")
+            e, t = err_of(got, grid_sample_nchw(feat, grid), f"{label} {name} exact vs grid_sample")
+            gs_errs.append(e)
+            fast = kws.grid_sample_smooth_nchw(feat, grid, "fast")
+            e, t = err_of(fast, ows.windowed_sample_plain(feat, ows.pad_grid(grid), (h, h)),
+                          f"{label} {name} fast vs plain")
+            kernel_errs.append(e)
+            tols.append(t)
+        # timed on the random flow, as random weights give the main path
+        gp = ows.pad_grid(rough)
+        p = ows.plan(feat, gp, (h, h))
+        feat32 = feat.float()
+        n_pix = B * h * h
+        nbytes = B * C * h * h * 2 + gp.numel() * 4 + n_pix * C * 2
+        b_ms, b_by = bound(nbytes, n_pix * C * 8.0)
+        rows.append(dict(shape=label, dims=[B, C, h, h], calls=1, max_abs_err=max(kernel_errs),
+                         tol=min(tols), exact_vs_grid_sample_err=max(gs_errs),
+                         ms=cuda_ms(lambda: kws.windowed_sample(feat, gp, (h, h), p), 20),
+                         plan_ms=cuda_ms(lambda: ows.plan(feat, gp, (h, h)), 10),
+                         plain_ms=cuda_ms(lambda: ows.windowed_sample_plain(feat, gp, (h, h), p), 5),
+                         library_ms=cuda_ms(lambda: F.grid_sample(feat32, rough, align_corners=False), 20),
+                         bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 def summarize(name: str, rows: list[dict], launches: int) -> dict:
     """One kernels-line entry: times summed over one match()'s calls."""
     per_match = lambda key: sum(r["calls"] * r[key] for r in rows)
@@ -252,15 +403,13 @@ def run_main_path(matcher, gen, dev, repeats: int = 3):
     return warp, cert, launches, first_s, times
 
 
-def profile_match(matcher, gen, dev, out_dir: Path) -> dict:
-    """torch.profiler over one match(): device time per labelled stage
-    (the roma.* ranges), the busy share of the wall time, and the top
-    kernels by device time (table written to out_dir)."""
+def profile_match(matcher, a, b, out_dir: Path, prefix: str, table: str) -> dict:
+    """torch.profiler over one match(): device time per labelled stage (the
+    `prefix`* ranges), the busy share of the wall time, and the top kernels
+    by device time (table written to out_dir/table)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    h, w = matcher.cfg.coarse_resolution
-    a, b = (torch.rand((PAIRS, h, w, 3), generator=gen, device=dev) for _ in range(2))
     timed_match(matcher, a, b)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, wall_s = timed_match(matcher, a, b)
@@ -268,32 +417,37 @@ def profile_match(matcher, gen, dev, out_dir: Path) -> dict:
     dev_total = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
     dev_self = lambda e: getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0.0))
-    # the roma.* ranges show up twice: as host ranges and as device spans
-    stages = {e.key: dev_total(e) / 1e3 for e in events if e.key.startswith("roma.")}
+    # the labelled ranges show up twice: as host ranges and as device spans
+    stages = {e.key: dev_total(e) / 1e3 for e in events if e.key.startswith(prefix)}
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("roma.")]
+               and not e.key.startswith(prefix)]
     busy_ms = sum(dev_self(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_self, reverse=True)[:25]
-    (out_dir / "profile_match.txt").write_text(
+    (out_dir / table).write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / (wall_s * 1e3), "stages_device_ms": stages,
             "top_kernels_ms": {e.key[:80]: dev_self(e) / 1e3 for e in top}}
 
 
-def check_outputs(matcher, warp, cert):
+def check_outputs(matcher, warp, cert, shape=None, clamped: bool = True):
+    """(B, H, W) of the certainty (default: full RoMa's symmetric output),
+    finite values, certainty in [0, 1], a clamped warp where the matcher
+    clamps, and sample()."""
     import torch
 
-    hs, ws = matcher.cfg.upsample_resolution
-    fail_if(tuple(warp.shape) != (PAIRS, hs, 2 * ws, 4), f"warp shape {tuple(warp.shape)}")
-    fail_if(tuple(cert.shape) != (PAIRS, hs, 2 * ws), f"certainty shape {tuple(cert.shape)}")
+    if shape is None:
+        hs, ws = matcher.cfg.upsample_resolution
+        shape = (PAIRS, hs, 2 * ws)
+    fail_if(tuple(warp.shape) != (*shape, 4), f"warp shape {tuple(warp.shape)}")
+    fail_if(tuple(cert.shape) != tuple(shape), f"certainty shape {tuple(cert.shape)}")
     fail_if(not bool(torch.isfinite(warp).all()), "warp has non-finite values")
     fail_if(not bool(torch.isfinite(cert).all()), "certainty has non-finite values")
     fail_if(cert.min().item() < 0 or cert.max().item() > 1, "certainty outside [0, 1]")
-    fail_if(warp.abs().max().item() > 1, "warp outside [-1, 1]")
+    fail_if(clamped and warp.abs().max().item() > 1, "warp outside [-1, 1]")
     gen = torch.Generator(device=warp.device).manual_seed(0)
-    m, c = matcher.sample(warp[0], cert[0], num=10000, generator=gen)
-    fail_if(tuple(m.shape) != (10000, 4) or tuple(c.shape) != (10000,), "sample() shape")
+    m, c = matcher.sample(warp[0], cert[0], num=5000, generator=gen)
+    fail_if(tuple(m.shape) != (5000, 4) or tuple(c.shape) != (5000,), "sample() shape")
 
 
 def check_small_reference(seed: int, dev):
@@ -323,6 +477,141 @@ def check_small_reference(seed: int, dev):
     return res
 
 
+def print_rows(card: str, rows: dict, name: str) -> None:
+    for r in rows[name]:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"[{card}] {name} {r['shape']} {r['dims']}: err {r['max_abs_err']:.3e} "
+              f"(tol {r['tol']:.1e}) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+
+def run_tiny(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
+    """Path A: Tiny RoMa v1 with fused_kernel=True on 8 pairs at 480x640 (a
+    first call, the counted call, 3 timed calls; with `profile_dir`, one
+    more under torch.profiler), one 1056x1920 pair, the same weights with
+    fused_kernel=False, and a small GPU-vs-CPU check."""
+    import torch
+
+    from roma_torch.config import TinyRomaConfig
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.models.zoo import tiny_roma_v1_outdoor
+
+    fused = tiny_roma_v1_outdoor(seed=SEED, device=dev, cfg=TinyRomaConfig(fused_kernel=True))
+    H, W = TINY_HW
+    ims = [torch.rand((TINY_PAIRS, H, W, 3), generator=gen, device=dev) for _ in range(2)]
+    res: dict = {}
+    _, _, res["first_match_s"] = timed_match(fused, *ims)
+    reset_launches()
+    warp, cert, counted_s = timed_match(fused, *ims)
+    res["launches"] = launches = dict(LAUNCHES)
+    times = [counted_s] + [timed_match(fused, *ims)[2] for _ in range(3)]
+    res.update(match_s=times, pairs_per_s=TINY_PAIRS / min(times))
+    print(f"[{card}] tiny match() on {TINY_PAIRS} pairs at {H}x{W} (fused_kernel=True): first "
+          f"{res['first_match_s']:.3f} s, then {', '.join(f'{t:.4f}' for t in times)} s; best "
+          f"{res['pairs_per_s']:.2f} pairs/s; launches {launches}", flush=True)
+    for name, n in launches.items():
+        fail_if(n != int(name == "corr_softmax"), f"tiny match(): {name} launched {n} times")
+    check_outputs(fused, warp, cert, (TINY_PAIRS, H, W), clamped=False)
+    if profile_dir is not None:
+        res["profile"] = profile_match(fused, *ims, profile_dir, "tiny.", "profile_tiny.txt")
+        print(f"[{card}] tiny profile: {json.dumps(res['profile'])}", flush=True)
+
+    plain = tiny_roma_v1_outdoor(seed=SEED, device=dev)
+    timed_match(plain, *ims)
+    w2, c2, plain_s = timed_match(plain, *ims)
+    res.update(unfused_match_s=plain_s, unfused_pairs_per_s=TINY_PAIRS / plain_s,
+               fused_vs_unfused_median_warp_diff=(w2 - warp).abs().median().item(),
+               fused_vs_unfused_mean_cert_diff=(c2 - cert).abs().mean().item())
+    print(f"[{card}] tiny match() same weights, fused_kernel=False: {plain_s:.4f} s "
+          f"({res['unfused_pairs_per_s']:.2f} pairs/s); fused {min(times):.4f} s; median "
+          f"|dwarp| {res['fused_vs_unfused_median_warp_diff']:.2e}", flush=True)
+    fail_if(res["fused_vs_unfused_median_warp_diff"] >= 0.02,
+            "tiny fused vs unfused disagree")
+    del plain, w2, c2
+
+    Hm, Wm = MEGAPIXEL_HW
+    big = [torch.rand((1, Hm, Wm, 3), generator=gen, device=dev) for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    wm, cm, res["megapixel_match_s"] = timed_match(fused, *big)
+    res["megapixel_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check_outputs(fused, wm, cm, (1, Hm, Wm), clamped=False)
+    print(f"[{card}] tiny match() on 1 pair at {Hm}x{Wm} (L = {Hm // 8 * Wm // 8}): "
+          f"{res['megapixel_match_s']:.4f} s (first call at this size), peak "
+          f"{res['megapixel_peak_mem_gb']:.2f} GB", flush=True)
+    del fused, big, wm, cm
+
+    # small model check: same weights on the GPU (kernel) and the CPU (plain)
+    gpu = tiny_roma_v1_outdoor(seed=SEED, device=dev, cfg=TinyRomaConfig(fused_kernel=True))
+    cpu = tiny_roma_v1_outdoor(seed=SEED, device="cpu", cfg=TinyRomaConfig(fused_kernel=True))
+    g = torch.Generator().manual_seed(SEED)
+    a, b = (torch.rand((1, 128, 160, 3), generator=g) for _ in range(2))
+    wg, cg = gpu.match(a.to(dev), b.to(dev), batched=True)
+    wc, cc = cpu.match(a, b, batched=True)
+    dw, dc = (wg.cpu() - wc).abs(), (cg.cpu() - cc).abs()
+    res["small_reference"] = dict(median_warp_diff=dw.median().item(),
+                                  max_warp_diff=dw.max().item(),
+                                  mean_cert_diff=dc.mean().item(), max_cert_diff=dc.max().item())
+    print(f"[{card}] tiny GPU vs CPU (128x160): {res['small_reference']}", flush=True)
+    fail_if(res["small_reference"]["median_warp_diff"] >= 0.02
+            or res["small_reference"]["mean_cert_diff"] >= 0.05,
+            f"tiny GPU vs CPU disagree: {res['small_reference']}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_smooth_warp(dev, gen, card: str) -> dict:
+    """Path B: full RoMa with smooth_warp_gather="fast", counted and timed
+    as the default path, then one more match() that records, per pass,
+    whether the scale-1 flow was window-smooth (the `with_ok` flag)."""
+    import torch
+
+    from roma_torch.models.zoo import roma_outdoor
+    from roma_torch.ops.windowed_sample import pad_grid, smoothness_ok
+
+    matcher = roma_outdoor(seed=SEED, device=dev, smooth_warp_gather="fast")
+    cfg = matcher.cfg
+    warp, cert, launches, first_s, times = run_main_path(matcher, gen, dev)
+    res = dict(first_match_s=first_s, match_s=times, pairs_per_s=PAIRS / min(times),
+               launches=launches)
+    print(f"[{card}] match() smooth_warp_gather='fast' on 2 pairs: first {first_s:.3f} s, then "
+          f"{', '.join(f'{t:.4f}' for t in times)} s; best {res['pairs_per_s']:.3f} pairs/s; "
+          f"launches {launches}", flush=True)
+    expected = dict(expected_launches(cfg), windowed_sample=2)
+    for name, n in expected.items():
+        fail_if(launches[name] != n, f"smooth warp: {name}: {launches[name]} launches, expected {n}")
+    check_outputs(matcher, warp, cert)
+
+    oks = []
+
+    def record_ok(mod, args):
+        _, y, flow = args[:3]
+        oks.append(bool(smoothness_ok(y, pad_grid(flow), tuple(flow.shape[1:3]))))
+
+    hook = matcher.model.decoder.conv_refiner["1"].register_forward_pre_hook(record_ok)
+    h, w = cfg.coarse_resolution
+    timed_match(matcher, *(torch.rand((PAIRS, h, w, 3), generator=gen, device=dev)
+                           for _ in range(2)))
+    hook.remove()
+    res["ok_share"] = sum(oks) / len(oks)
+    print(f"[{card}] smooth warp: window-smooth share of scale-1 warps {res['ok_share']} "
+          f"({oks}; random weights give rough flows)", flush=True)
+    del matcher
+    torch.cuda.empty_cache()
+    return res
+
+
+def expected_launches(cfg) -> dict:
+    """Launches of one default full-RoMa match()."""
+    return {
+        "local_corr": sum(1 for s in ("16", "8", "4") if cfg.refiners[s].local_corr_radius)
+        + sum(1 for s in ("8", "4") if cfg.refiners[s].local_corr_radius),
+        "dw_chain": 2 * (1 + cfg.refiners["1"].hidden_blocks),
+        "flash_attn": cfg.dinov2_depth + cfg.num_decoder_blocks,
+        "corr_softmax": 0,
+        "windowed_sample": 0,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -333,6 +622,7 @@ def main() -> int:
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU, no result",
               file=sys.stderr)
@@ -369,20 +659,10 @@ def main() -> int:
         "flash_attn": check_flash_attn(dev, gen, cfg),
     }
     report["kernel_rows"] = rows
-    for name, rs in rows.items():
-        for r in rs:
-            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            print(f"[{card}] {name} {r['shape']} {r['dims']}: err {r['max_abs_err']:.3e} "
-                  f"(tol {r['tol']:.1e}) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-                  flush=True)
+    for name in rows:
+        print_rows(card, rows, name)
 
-    expected = {
-        "local_corr": sum(1 for s in ("16", "8", "4") if cfg.refiners[s].local_corr_radius)
-        + sum(1 for s in ("8", "4") if cfg.refiners[s].local_corr_radius),
-        "dw_chain": 2 * (1 + cfg.refiners["1"].hidden_blocks),
-        "flash_attn": cfg.dinov2_depth + cfg.num_decoder_blocks,
-    }
+    expected = expected_launches(cfg)
     out_dir = args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     warp, cert, launches, first_s, times = run_main_path(matcher, gen, dev)
@@ -398,16 +678,30 @@ def main() -> int:
     check_outputs(matcher, warp, cert)
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if args.profile:
-        report["profile"] = profile_match(matcher, gen, dev, out_dir)
+        h, w = cfg.coarse_resolution
+        ims = [torch.rand((PAIRS, h, w, 3), generator=gen, device=dev) for _ in range(2)]
+        report["profile"] = profile_match(matcher, *ims, out_dir, "roma.", "profile_match.txt")
         print(f"[{card}] profile: {json.dumps(report['profile'])}", flush=True)
     del matcher
     torch.cuda.empty_cache()
     report["small_reference"] = check_small_reference(SEED, dev)
     print(f"[{card}] debug model GPU vs CPU: {report['small_reference']}", flush=True)
 
-    kernels = [summarize(name, rows[name], launches[name]) for name in KERNELS]
+    rows["corr_softmax"] = check_corr_softmax(dev, gen)
+    print_rows(card, rows, "corr_softmax")
+    report["tiny"] = run_tiny(dev, gen, card, out_dir if args.profile else None)
+    rows["windowed_sample"] = check_windowed_sample(dev, gen, cfg)
+    print_rows(card, rows, "windowed_sample")
+    report["smooth_warp"] = run_smooth_warp(dev, gen, card)
+
+    # each kernel's launches come from the run of the path it serves
+    path_launches = dict(launches, corr_softmax=report["tiny"]["launches"]["corr_softmax"],
+                         windowed_sample=report["smooth_warp"]["launches"]["windowed_sample"])
+    kernels = [summarize(name, rows[name], path_launches[name]) for name in KERNELS]
     report["kernels"] = kernels
+    report["total_s"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"[{card}] chip_smoke ran in {report['total_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

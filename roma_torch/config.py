@@ -1,6 +1,6 @@
-"""Typed configuration for full RoMa (a copy of the JAX package's dataclasses;
-the port imports nothing from it). Defaults must stay equal to the JAX
-package's, which `tests/test_torch_config.py` asserts."""
+"""Typed configuration for full RoMa and Tiny RoMa v1 (a copy of the JAX
+package's dataclasses; the port imports nothing from it). Defaults must stay
+equal to the JAX package's, which `tests/test_torch_config.py` asserts."""
 
 from __future__ import annotations
 
@@ -18,6 +18,30 @@ RESOLUTION_PRESETS: Mapping[str, tuple[int, int]] = {
     "upsample_high": (1344, 1344),
     "tiny_bench": (480, 640),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TinyRomaConfig:
+    """Tiny RoMa v1: XFeat backbone + global corr + 2 conv matchers."""
+    coarse_dim: int = 64          # XFeat fused feature channels (1/8 scale)
+    fine_dim: int = 24            # XFeat block2 channels (1/4 scale)
+    match_dim: int = 256          # coarse matcher hidden width
+    fine_match_dim: int = 64      # fine matcher hidden width
+    num_matcher_blocks: int = 4
+    exact_softmax: bool = True    # exact softmax-expectation coarse warp
+    faithful_fast_path: bool = False  # with exact_softmax=False: reproduce the
+                                  # reference shortcut's index-as-logit and
+                                  # shifted-grid quirks bit for bit
+    fused_kernel: bool = False    # streaming correlation-softmax kernel: no
+                                  # (L0, L1) volume in device memory
+    # search-space restriction: "full" global matching, "band" = +-band_radius
+    # rows, "row" = same row only
+    search_mode: str = "full"
+    band_radius: int = 4
+    coarse_iters: int = 1         # iterated coarse matcher
+    sample_thresh: float = 0.05
+    symmetric: bool = False
+    dtype: str = "bfloat16"       # compute dtype; params stay float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +87,9 @@ class RomaConfig:
     decoder_heads: int = 8
     refine_init: float = 4.0      # delta-flow scaling
     disp_emb_gain: float = 40.0 / 32.0  # displacement embedding scale
-    # windowed scale-1 warp gather: not ported yet, only False is accepted
+    # scale-1 warp gather through the windowed kernel: False (plain
+    # grid_sample), True/"exact" (kernel only when the whole batch is
+    # window-smooth) or "fast" (kernel always, window-clamped on rough tiles)
     smooth_warp_gather: bool | str = False
     # per-scale refiners
     refiners: Mapping[str, RefinerConfig] = dataclasses.field(

@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
-| kernel       | source              | replaces (TPU)                                     |
-|--------------|---------------------|----------------------------------------------------|
-| local_corr   | csrc/local_corr.cu  | ops/pallas/block_gather.py::local_correlation_dma   |
-| dw_chain     | csrc/dw_chain.cu    | ops/pallas/depthwise.py::dw5x5_mm_chain             |
-| flash_attn   | csrc/flash_attn.cu  | models/transformer.py::_flash_attention             |
+| kernel          | source                  | replaces (TPU)                                      |
+|-----------------|-------------------------|-----------------------------------------------------|
+| local_corr      | csrc/local_corr.cu      | ops/pallas/block_gather.py::local_correlation_dma   |
+| dw_chain        | csrc/dw_chain.cu        | ops/pallas/depthwise.py::dw5x5_mm_chain             |
+| flash_attn      | csrc/flash_attn.cu      | models/transformer.py::_flash_attention             |
+| corr_softmax    | csrc/corr_softmax.cu    | ops/pallas/corr_softmax.py::fused_pos_embed         |
+| windowed_sample | csrc/windowed_sample.cu | ops/pallas/windowed_sample.py::grid_sample_smooth   |
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel (or raises) for CUDA tensors. Building is lazy (`runtime.load`).

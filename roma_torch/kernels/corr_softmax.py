@@ -1,0 +1,60 @@
+"""Streaming correlation softmax (CUDA, ``csrc/corr_softmax.cu``), its plain
+PyTorch version and the wrapper.
+
+Replaces the TPU kernel ``roma_tpu/ops/pallas/corr_softmax.py::
+fused_pos_embed``: for every target position p,
+``warp[p] = sum_j softmax_j(<f0[p], f1[j]> / sqrt(C)) * grid[j]``, without
+the (L0, L1) correlation volume. Bound and design: see the note at the top
+of the CUDA source (operations; flash-attention streaming with fp32 scores,
+per-thread partial softmax states merged once at the end).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from roma_torch.kernels import runtime
+
+NAME = "corr_softmax"
+CHANNELS = (16, 32, 64)
+
+
+def fused_pos_embed_plain(f0: torch.Tensor, f1: torch.Tensor,
+                          grid: torch.Tensor) -> torch.Tensor:
+    """(B,L0,C), (B,L1,C), (L1,2) -> (B,L0,2) float32: the correlation
+    volume, its softmax over L1, and the product with the grid."""
+    cv = torch.bmm(f0.float(), f1.float().transpose(1, 2)) / math.sqrt(f0.shape[-1])
+    return torch.softmax(cv, dim=-1) @ grid.float()
+
+
+def fused_pos_embed(f0: torch.Tensor, f1: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if f0.device.type == "cpu":
+        return fused_pos_embed_plain(f0, f1, grid)
+    return fused_pos_embed_cuda(f0, f1, grid)
+
+
+def fused_pos_embed_cuda(f0: torch.Tensor, f1: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    B, L0, C = f0.shape
+    L1 = f1.shape[1]
+    if C not in CHANNELS or L1 < 1:
+        raise ValueError(f"{NAME}: C must be one of {CHANNELS} and L1 >= 1 (C={C}, L1={L1})")
+    dev = f0.device
+    runtime.require(NAME, f0, (B, L0, C), torch.float32, dev)
+    runtime.require(NAME, f1, (B, L1, C), torch.float32, dev)
+    runtime.require(NAME, grid, (L1, 2), torch.float32, dev)
+    if f0.data_ptr() % 16 or f1.data_ptr() % 16:
+        raise ValueError(f"{NAME}: features must be 16-byte aligned")
+    out = torch.empty((B, L0, 2), dtype=torch.float32, device=dev)
+    lib = runtime.load(NAME)
+    fn = lib.roma_corr_softmax
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scale_log2 = math.log2(math.e) / math.sqrt(C)
+    rc = fn(f0.data_ptr(), f1.data_ptr(), grid.data_ptr(), out.data_ptr(), B, L0, L1, C,
+            scale_log2, runtime.stream_handle(f0))
+    runtime.check(lib, NAME, rc)
+    return out

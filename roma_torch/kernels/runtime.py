@@ -32,6 +32,8 @@ SOURCES = {
     "local_corr": "local_corr.cu",
     "dw_chain": "dw_chain.cu",
     "flash_attn": "flash_attn.cu",
+    "corr_softmax": "corr_softmax.cu",
+    "windowed_sample": "windowed_sample.cu",
 }
 
 NVCC_FLAGS = [

@@ -79,7 +79,8 @@ class Decoder(nn.Module):
         self.conv_refiner = nn.ModuleDict({
             s: ConvRefiner(rc.in_dim, rc.hidden_dim, rc.displacement_emb_dim,
                            rc.local_corr_radius, rc.hidden_blocks, rc.kernel_size,
-                           cfg.disp_emb_gain, dtype=dt)
+                           cfg.disp_emb_gain, dtype=dt,
+                           smooth_warp=cfg.smooth_warp_gather)
             for s, rc in cfg.refiners.items()
         })
 
@@ -154,8 +155,6 @@ class RomaModel(nn.Module):
 
     def __init__(self, cfg: RomaConfig = RomaConfig()):
         super().__init__()
-        if cfg.smooth_warp_gather:
-            raise NotImplementedError("smooth_warp_gather is not ported yet")
         self.cfg = cfg
         self.encoder = CNNandDinov2(cfg)
         self.decoder = Decoder(cfg)

@@ -1,7 +1,8 @@
 """Weight carry from the JAX package's variables to this package's state_dict.
 
 `state_dict_from_jax` is the exact inverse of the JAX package's
-``models/port.py::port_roma``: flax HWIO conv kernels -> OIHW, dense (I, O)
+``models/port.py::port_roma`` and `tiny_state_dict_from_jax` that of its
+``port_tiny_roma``: flax HWIO conv kernels -> OIHW, dense (I, O)
 -> (O, I), BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
 running_var``. The port's modules carry the reference RoMa key names, so the
 result loads with ``RomaModel.load_state_dict`` and a reference checkpoint
@@ -55,8 +56,10 @@ class _Writer:
         self.sd[f"{key}.weight"] = _t(p["scale"])
         self.sd[f"{key}.bias"] = _t(p["bias"])
 
-    def batchnorm(self, key: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
-        self.norm(key, p)
+    def batchnorm(self, key: str, p: Mapping[str, Any] | None, s: Mapping[str, Any]) -> None:
+        """`p` is None for BatchNorm(affine=False), which has no weight or bias."""
+        if p is not None:
+            self.norm(key, p)
         self.sd[f"{key}.running_mean"] = _t(s["mean"])
         self.sd[f"{key}.running_var"] = _t(s["var"])
         self.sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
@@ -119,4 +122,35 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
             w.batchnorm(f"{key}.{dst}.1", rp[src]["norm"], rs[src]["norm"])
             w.conv(f"{key}.{dst}.3", rp[src]["conv2"])
         w.conv(f"{key}.out_conv", rp["out_conv"])
+    return w.sd
+
+
+# reference XFeat block -> the JAX package's flax block name
+XFEAT_BLOCKS = [(f"block{i}.{j}", f"block{i}_{j}")
+                for i, n in ((1, 4), (2, 2), (3, 3), (4, 3), (5, 4)) for j in range(n)]
+XFEAT_BLOCKS += [("block_fusion.0", "fusion_0"), ("block_fusion.1", "fusion_1")]
+
+
+def tiny_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX `TinyRoma` variables ({"params", "batch_stats"}, numpy leaves)
+    -> this package's `TinyRoma` state_dict (trainable reference layout,
+    ``xfeat.0.*``). Every ConvBlock's BatchNorm is affine=False."""
+    params, stats = variables["params"], variables["batch_stats"]
+    w = _Writer()
+
+    def block(key: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+        w.conv(f"{key}.layer.0", p["Conv_0"])
+        w.batchnorm(f"{key}.layer.1", p.get("BatchNorm_0"), s["BatchNorm_0"])
+
+    bp, bs = params["backbone"], stats["backbone"]
+    for dst, src in XFEAT_BLOCKS:
+        block(f"xfeat.0.{dst}", bp[src], bs[src])
+    w.conv("xfeat.0.skip1.1", bp["skip1_conv"])
+    w.conv("xfeat.0.block_fusion.2", bp["fusion_conv"])
+    for name in ("coarse_matcher", "fine_matcher"):
+        mp, ms = params[name], stats[name]
+        n = _count(mp, "block_")
+        for i in range(n):
+            block(f"{name}.{i}", mp[f"block_{i}"], ms[f"block_{i}"])
+        w.conv(f"{name}.{n}", mp["head"])
     return w.sd

@@ -11,7 +11,10 @@ Kernel gates, as in the JAX package:
 - local correlation goes to the local-correlation kernel for r <= 7 and
   C % 128 == 0 (scales 16/8/4);
 - a narrow stack (hidden_dim < 64, k = 5, input width == hidden_dim: the
-  scale-1 refiner) runs as one chain through the fused block kernel.
+  scale-1 refiner) runs as one chain through the fused block kernel;
+- with `smooth_warp` set (RomaConfig.smooth_warp_gather), the warp of a map
+  with <= 16 channels (the scale-1 refiner's 9) goes through the windowed
+  warp-gather kernel in "fast" or "exact" mode.
 The kernel wrappers take their plain versions for CPU tensors. Scales
 16/8/4/2 run their blocks as plain conv2d(groups=C) + affine + ReLU + 1x1.
 
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 
 from roma_torch.kernels import dw_chain
 from roma_torch.kernels import local_corr as local_corr_kernel
+from roma_torch.kernels.windowed_sample import grid_sample_smooth_nchw
 from roma_torch.models.layers import conv2d
 from roma_torch.ops.corr import coord_grid
 from roma_torch.ops.grid_sample import grid_sample_nchw
@@ -70,7 +74,7 @@ class ConvRefiner(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, displacement_emb_dim: int,
                  local_corr_radius: int | None = None, hidden_blocks: int = 8,
                  kernel_size: int = 5, disp_emb_gain: float = 40.0 / 32.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, smooth_warp: bool | str = False):
         super().__init__()
         if in_dim != hidden_dim:
             raise ValueError("depthwise block1 needs in_dim == hidden_dim")
@@ -79,6 +83,7 @@ class ConvRefiner(nn.Module):
         self.local_corr_radius = local_corr_radius
         self.disp_emb_gain = disp_emb_gain
         self.dtype = dtype
+        self.smooth_warp = smooth_warp
         self.disp_emb = nn.Conv2d(2, displacement_emb_dim, 1)
         self.block1 = DWBlock(hidden_dim, kernel_size)
         self.hidden_blocks = nn.Sequential(
@@ -100,7 +105,11 @@ class ConvRefiner(nn.Module):
         Returns (delta_flow (B,H,W,2), delta_certainty (B,H,W,1)) float32."""
         dt = self.dtype
         B, C, H, W = x.shape
-        x_hat = grid_sample_nchw(y, flow).to(dt)
+        if self.smooth_warp:
+            mode = "fast" if self.smooth_warp == "fast" else "exact"
+            x_hat = grid_sample_smooth_nchw(y, flow, mode).to(dt)
+        else:
+            x_hat = grid_sample_nchw(y, flow).to(dt)
         grid = coord_grid(H, W, device=x.device)
         disp = (flow - grid).float().permute(0, 3, 1, 2)
         emb = conv2d(self.disp_emb, (self.disp_emb_gain * scale_factor * disp).to(dt), dt)

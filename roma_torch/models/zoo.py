@@ -7,14 +7,16 @@ from __future__ import annotations
 
 import torch
 
-from roma_torch.config import RefinerConfig, RomaConfig
+from roma_torch.config import RefinerConfig, RomaConfig, TinyRomaConfig
 from roma_torch.models.matcher import RomaMatcher, RomaModel
+from roma_torch.models.tiny_roma import TinyRoma, TinyRomaMatcher
 
 
-def build_model(cfg: RomaConfig, seed: int = 0) -> RomaModel:
+def build_model(cfg: RomaConfig | TinyRomaConfig, seed: int = 0) -> RomaModel | TinyRoma:
+    model_cls = TinyRoma if isinstance(cfg, TinyRomaConfig) else RomaModel
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return RomaModel(cfg)
+        return model_cls(cfg)
 
 
 def roma_outdoor(
@@ -23,18 +25,32 @@ def roma_outdoor(
     seed: int = 0,
     device=None,
     cfg: RomaConfig | None = None,
+    smooth_warp_gather: bool | str = False,
 ) -> RomaMatcher:
     """Full RoMa at the shipped resolutions (coarse 560, upsample 864).
-    `device` defaults to the GPU; `cfg` overrides the whole configuration."""
+    `device` defaults to the GPU; `cfg` overrides the whole configuration.
+    `smooth_warp_gather` (RomaConfig.smooth_warp_gather): False keeps the
+    plain scale-1 warp; True/"exact" takes the windowed kernel when the
+    whole batch is window-smooth; "fast" takes it always (window-clamped on
+    rough tiles, the mode for trained weights)."""
     if isinstance(coarse_res, int):
         coarse_res = (coarse_res, coarse_res)
     if isinstance(upsample_res, int):
         upsample_res = (upsample_res, upsample_res)
     if cfg is None:
-        cfg = RomaConfig(coarse_resolution=coarse_res, upsample_resolution=upsample_res)
+        cfg = RomaConfig(coarse_resolution=coarse_res, upsample_resolution=upsample_res,
+                         smooth_warp_gather=smooth_warp_gather)
     if cfg.coarse_resolution[0] % 14 or cfg.coarse_resolution[1] % 14:
         raise ValueError("coarse resolution must be a multiple of 14 (ViT-L/14 patches)")
     return RomaMatcher(build_model(cfg, seed), device=device)
+
+
+def tiny_roma_v1_outdoor(seed: int = 0, device=None,
+                         cfg: TinyRomaConfig | None = None) -> TinyRomaMatcher:
+    """Tiny RoMa v1 (XFeat 64/24, matchers 256/64, 4 blocks each). `device`
+    defaults to the GPU; `cfg` overrides the configuration (for instance
+    ``TinyRomaConfig(fused_kernel=True)`` for the streaming kernel)."""
+    return TinyRomaMatcher(build_model(cfg or TinyRomaConfig(), seed), device=device)
 
 
 def debug_roma_config() -> RomaConfig:

@@ -4,6 +4,7 @@ nvcc or triton."""
 
 import ast
 import dataclasses
+import inspect
 import pathlib
 
 import pytest
@@ -22,7 +23,7 @@ def _asdict(cfg):
     return dataclasses.asdict(cfg)
 
 
-@pytest.mark.parametrize("name", ["RomaConfig", "GPConfig"])
+@pytest.mark.parametrize("name", ["RomaConfig", "GPConfig", "TinyRomaConfig"])
 def test_config_defaults_equal_jax(name):
     assert _asdict(getattr(tcfg, name)()) == _asdict(getattr(jcfg, name)())
 
@@ -49,6 +50,10 @@ def _imports(path):
 def test_port_imports_no_jax_or_jax_package():
     files = sorted((REPO / "roma_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"roma_torch/models/tiny_roma.py", "roma_torch/models/xfeat.py",
+            "roma_torch/ops/band_corr.py", "roma_torch/ops/windowed_sample.py",
+            "roma_torch/kernels/corr_softmax.py", "roma_torch/kernels/windowed_sample.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -69,7 +74,8 @@ def test_cuda_request_without_gpu_raises():
 def test_kernel_build_is_lazy_and_named_by_content():
     from roma_torch.kernels import LAUNCHES, reset_launches, runtime
 
-    assert set(runtime.SOURCES) == {"local_corr", "dw_chain", "flash_attn"}
+    assert set(runtime.SOURCES) == {"local_corr", "dw_chain", "flash_attn", "corr_softmax",
+                                    "windowed_sample"}
     for name, src in runtime.SOURCES.items():
         assert (runtime.CSRC / src).exists()
         p = runtime.lib_path(name)
@@ -79,3 +85,19 @@ def test_kernel_build_is_lazy_and_named_by_content():
     LAUNCHES["local_corr"] = 3
     reset_launches()
     assert set(LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("mode", [False, True, "exact", "fast"])
+def test_smooth_warp_gather_reaches_the_scale1_refiner(mode):
+    """`roma_outdoor(smooth_warp_gather=...)` builds (no longer raises) and
+    hands the mode to every refiner, as the JAX zoo and matcher do; only the
+    scale-1 refiner's 9-channel warp passes the windowed gather's C <= 16
+    gate."""
+    cfg = dataclasses.replace(tzoo.debug_roma_config(), smooth_warp_gather=mode)
+    m = tzoo.roma_outdoor(cfg=cfg, device="cpu")
+    assert m.cfg.smooth_warp_gather == mode
+    assert {r.smooth_warp for r in m.model.decoder.conv_refiner.values()} == {mode}
+    assert _asdict(tcfg.RomaConfig(smooth_warp_gather=mode)) == _asdict(
+        jcfg.RomaConfig(smooth_warp_gather=mode))
+    for fn in (tzoo.roma_outdoor, jzoo.roma_outdoor):
+        assert inspect.signature(fn).parameters["smooth_warp_gather"].default is False

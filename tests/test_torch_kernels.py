@@ -11,8 +11,10 @@ import jax
 import jax.numpy as jnp
 
 from roma_tpu.ops.pallas.block_gather import local_correlation_dma
+from roma_tpu.ops.pallas.corr_softmax import fused_pos_embed as j_fused_pos_embed
 from roma_tpu.ops.pallas.depthwise import dw5x5_mm_chain as j_chain
 from roma_torch.kernels import attention as tattn
+from roma_torch.kernels import corr_softmax as tcs
 from roma_torch.kernels import dw_chain as tchain
 from roma_torch.kernels import local_corr as tlc
 from roma_torch.ops.local_corr import local_correlation as t_local_corr
@@ -123,3 +125,32 @@ def test_attention_plain_takes_strided_qkv_views(rng):
     got = tattn.attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
     ref = tattn.attention_plain(*(qkv[:, :, i].contiguous() for i in range(3)))
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("l0,l1,c", [(60, 48, 16), (256, 512, 64), (100, 700, 32), (30, 700, 64)])
+def test_corr_softmax_plain_matches_pallas_interpret(rng, l0, l1, c):
+    """The streaming correlation softmax's plain version against JAX
+    `fused_pos_embed(interpret=True)` at the JAX package's own test shapes
+    (ragged L0 and L1 against its tiles), fp32. Tolerance 2e-4, as there."""
+    f0 = rng.standard_normal((2, l0, c)).astype(np.float32)
+    f1 = rng.standard_normal((2, l1, c)).astype(np.float32)
+    grid = rng.uniform(-1, 1, (l1, 2)).astype(np.float32)
+    ref = np.asarray(j_fused_pos_embed(jnp.asarray(f0), jnp.asarray(f1), jnp.asarray(grid),
+                                       chunk=128, tile=64, interpret=True))
+    got = tcs.fused_pos_embed(*(torch.from_numpy(a) for a in (f0, f1, grid)))
+    assert got.shape == (2, l0, 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=0)
+
+
+def test_corr_softmax_plain_peaked(rng):
+    """A sharply peaked volume (each row's softmax concentrated on one
+    source), as in the JAX package's test. Tolerance 1e-4."""
+    l0, l1, c = 32, 96, 8
+    f1 = rng.standard_normal((1, l1, c)).astype(np.float32) * 0.01
+    peaks = rng.integers(0, l1, l0)
+    f0 = 20.0 * f1[0, peaks][None] / np.linalg.norm(f1[0, peaks], axis=-1, keepdims=True)
+    grid = rng.uniform(-1, 1, (l1, 2)).astype(np.float32)
+    ref = np.asarray(j_fused_pos_embed(jnp.asarray(f0), jnp.asarray(f1), jnp.asarray(grid),
+                                       chunk=32, tile=32, interpret=True))
+    got = tcs.fused_pos_embed(*(torch.from_numpy(a) for a in (f0, f1, grid))).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)

@@ -7,8 +7,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from roma_tpu.models.port import port_dinov2, port_roma
-from roma_torch.models.port import state_dict_from_jax
+from roma_tpu.models.port import port_dinov2, port_roma, port_tiny_roma
+from roma_torch.config import TinyRomaConfig
+from roma_torch.models.port import state_dict_from_jax, tiny_state_dict_from_jax
 from roma_torch.models.zoo import build_model, debug_roma_config
 
 DINO = "encoder.dinov2."
@@ -55,3 +56,25 @@ def test_reference_key_names(rng):
         assert key in sd, key
     # the match decoder's blocks carry no qkv bias (DINOv2's do)
     assert "decoder.embedding_decoder.blocks.0.attn.qkv.bias" not in sd
+
+
+def test_tiny_state_dict_round_trip_through_port_tiny_roma(rng):
+    """Tiny RoMa: torch state_dict (trainable reference layout) ->
+    port_tiny_roma -> tiny_state_dict_from_jax -> identical tensors, every
+    key, bit for bit; the affine-free BatchNorms carry no weight or bias."""
+    model = build_model(TinyRomaConfig(dtype="float32"), seed=2)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            assert m.weight is None and m.bias is None
+            m.running_mean.copy_(torch.from_numpy(rng.standard_normal(m.num_features).astype(np.float32)))
+            m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2, m.num_features).astype(np.float32)))
+    sd = model.state_dict()
+    back = tiny_state_dict_from_jax(port_tiny_roma({k: v.numpy() for k, v in sd.items()}))
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        assert torch.equal(back[k].to(v.dtype), v), k
+    for key in ("xfeat.0.block1.0.layer.0.weight", "xfeat.0.block5.3.layer.1.running_var",
+                "xfeat.0.skip1.1.bias", "xfeat.0.block_fusion.2.weight",
+                "coarse_matcher.3.layer.1.running_mean", "coarse_matcher.4.weight",
+                "fine_matcher.0.layer.0.weight", "fine_matcher.4.bias"):
+        assert key in sd, key
