@@ -4,29 +4,37 @@
     python3 chip_smoke.py [--profile] [--out DIR]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the five CUDA kernels from roma_torch/csrc (one nvcc each, in
+2. builds the seven CUDA kernels from roma_torch/csrc (one nvcc each, in
    parallel) into build/kernels/;
 3. builds full-width roma_outdoor() (ViT-L/14 24 blocks, 560 -> 864,
    symmetric, bf16) with random weights from seed 0;
 4. holds every kernel against its plain PyTorch version at each shape the
    main paths give it (2 pairs per full-RoMa match, 8 pairs per Tiny RoMa
-   match), and times the kernel, the plain version and, where one exists,
-   the single PyTorch call computing the same function (SDPA for attention
-   and the correlation softmax, F.grid_sample for the windowed gather);
+   match), plus ragged shapes where the tiling has edges, and times the
+   kernel, the plain version and, where one exists, the single PyTorch
+   call computing the same function (SDPA for attention and the
+   correlation softmax, F.grid_sample for the windowed gather, cuDNN's
+   depthwise conv for the wide depthwise block). The whole-block kernel
+   (dw_block_mm) is on no model path, as in the JAX package: it is checked
+   and timed here at the scale-2 and scale-1 shapes beside "wide depthwise
+   kernel + cuDNN 1x1", and its launches in the kernels line are 0;
 5. default full RoMa: RomaMatcher.match on 2 pairs, once to warm up, once
    with the launch counters reset just before it and read just after it
    (each kernel must show exactly its expected launches), and 3 more times
    for the rate; with --profile, one more run under torch.profiler (also
    for Tiny RoMa below); then the outputs (shapes, finite, certainty in
-   [0, 1], sampling) and the debug-size model on the GPU against the same
-   weights on the CPU;
-6. Tiny RoMa v1 (fused_kernel=True) on 8 pairs at 480x640, counted the same
+   [0, 1], sampling);
+6. match_raw on 2 pairs of uint8 canvases from two source sizes, resized
+   on the device: counted (the same launches as match()), timed, held
+   against match_prepped on host PIL resizes, then sample_batched; then the
+   debug-size model on the GPU against the same weights on the CPU;
+7. Tiny RoMa v1 (fused_kernel=True) on 8 pairs at 480x640, counted the same
    way (one correlation-softmax launch, nothing else), timed, beside the
    same weights with fused_kernel=False, plus one 1056x1920 pair and a
    small GPU-vs-CPU check;
-7. full RoMa with smooth_warp_gather="fast": counted (2 windowed-gather
-   launches with 5/18/29 of the others), timed, outputs checked;
-8. prints the kernels JSON line, then {"ok": true, "device": ...} last.
+8. full RoMa with smooth_warp_gather="fast": counted (2 windowed-gather
+   launches with the default path's others), timed, outputs checked;
+9. prints the kernels JSON line, then {"ok": true, "device": ...} last.
 
 Any failure exits non-zero before the last line. Detailed per-shape results
 go to DIR/chip_smoke.json (default results/chip_smoke/).
@@ -49,6 +57,10 @@ PAIRS = 2                  # pairs per match(); symmetric -> 4 images per pass
 TINY_PAIRS = 8             # pairs per Tiny RoMa match()
 TINY_HW = (480, 640)       # RESOLUTION_PRESETS["tiny_bench"]
 MEGAPIXEL_HW = (1056, 1920)
+# the whole-block kernel's shapes (label, B', C, side): refiner 2 in both
+# passes, refiner 1's coarse pass
+DW_BLOCK_MM_SHAPES = (("s2 coarse", 4, 144, 280), ("s2 upsample", 4, 144, 432),
+                      ("s1 coarse", 4, 24, 560))
 SEED = 0                   # weights and data
 
 # kernel -> (TPU kernel it replaces, CUDA source)
@@ -63,6 +75,10 @@ KERNELS = {
                      "roma_torch/csrc/corr_softmax.cu"),
     "windowed_sample": ("roma_tpu/ops/pallas/windowed_sample.py:266",
                         "roma_torch/csrc/windowed_sample.cu"),
+    "dw_affine_relu": ("roma_tpu/ops/pallas/depthwise.py:217",
+                       "roma_torch/csrc/dw_affine_relu.cu"),
+    "dw_block_mm": ("roma_tpu/ops/pallas/depthwise.py:476",
+                    "roma_torch/csrc/dw_block_mm.cu"),
 }
 
 
@@ -181,6 +197,130 @@ def check_dw_chain(dev, gen, cfg, model):
                          max_abs_err=err, tol=tol,
                          ms=cuda_ms(lambda: dw_chain.chain_nchw(x, *params), 10),
                          plain_ms=cuda_ms(lambda: dw_chain.chain_plain_nchw(x, *params), 3, 1),
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def wide_refiner_shapes(cfg) -> list[tuple[str, int, int, int]]:
+    """(label, plane side, C, blocks) of every non-chained DWBlock stack of
+    one match(): refiners 16/8/4/2 in the coarse pass, 8/4/2 in the
+    upsample pass (scale 16 sits on DINOv2's /14 grid)."""
+    hc, hu = cfg.coarse_resolution[0], cfg.upsample_resolution[0]
+    side = lambda h, s: h // 14 if s == "16" else h // int(s)
+    out = []
+    for label, h, scales in (("coarse", hc, ("16", "8", "4", "2")),
+                             ("upsample", hu, ("8", "4", "2"))):
+        for s in scales:
+            rc = cfg.refiners[s]
+            out.append((f"{label} s{s}", side(h, s), rc.hidden_dim, 1 + rc.hidden_blocks))
+    return out
+
+
+def dw_inputs(gen, dev, B, C, H, W, dtype):
+    """x, w (x 0.2), scale in [0.5, 1.5], shift (x 0.1), as the JAX
+    package's kernel tests make them."""
+    import torch
+
+    x = torch.randn((B, C, H, W), generator=gen, device=dev).to(dtype)
+    w = (0.2 * torch.randn((5, 5, C), generator=gen, device=dev)).to(dtype)
+    scale = 0.5 + torch.rand((C,), generator=gen, device=dev)
+    shift = 0.1 * torch.randn((C,), generator=gen, device=dev)
+    return x, w, scale, shift
+
+
+def check_dw_affine_relu(dev, gen, cfg):
+    """K4 at every main-path shape (B' = 4 images) and at ragged ones (odd
+    C, H and W off the 16 x 64 tile, one float32 case). Tolerance is
+    elementwise, one bf16 ulp of the element's own value: |kernel - plain|
+    <= 2^-7 |plain| + 1e-5, since only the float32 sum order differs before
+    the one rounding. The library column is cuDNN's bf16 depthwise conv
+    alone (no affine, no ReLU, rounded elsewhere), a time yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    from roma_torch.kernels import dw_affine_relu as k4
+
+    def compare(x, w, sc, sh, what):
+        got = k4.dw5x5_affine_relu_nchw(x, w, sc, sh)
+        ref = k4.dw5x5_affine_relu_plain_nchw(x, w, sc, sh)
+        torch.cuda.synchronize()
+        g, r = got.float(), ref.float()
+        excess = ((g - r).abs() - (2.0 ** -7 * r.abs() + 1e-5)).max().item()
+        err = (g - r).abs().max().item()
+        fail_if(not math.isfinite(err) or excess > 0,
+                f"dw_affine_relu {what}: max_abs_err {err}, beyond one bf16 ulp by {excess}")
+        return err, (g != r).float().mean().item()
+
+    ragged = []
+    for B, C, H, W, dt in ((1, 1377, 37, 45, torch.bfloat16), (3, 144, 71, 130, torch.bfloat16),
+                           (2, 569, 19, 67, torch.float32)):
+        err, diff = compare(*dw_inputs(gen, dev, B, C, H, W, dt), f"ragged {(B, C, H, W)} {dt}")
+        ragged.append(dict(dims=[B, C, H, W], dtype=str(dt), max_abs_err=err, differing_share=diff))
+    B = 2 * PAIRS
+    rows = []
+    for label, h, C, calls in wide_refiner_shapes(cfg):
+        x, w, sc, sh = dw_inputs(gen, dev, B, C, h, h, torch.bfloat16)
+        err, diff = compare(x, w, sc, sh, label)
+        wc = w.permute(2, 0, 1)[:, None].contiguous()
+        n = B * C * h * h
+        b_ms, b_by = bound(2 * n * 2 + 25 * C * 2 + 2 * C * 4, 53.0 * n)
+        rows.append(dict(shape=label, dims=[B, C, h, h], calls=calls, max_abs_err=err,
+                         differing_share=diff, tol="2^-7 |plain| + 1e-5",
+                         ms=cuda_ms(lambda: k4.dw5x5_affine_relu_nchw(x, w, sc, sh), 20),
+                         plain_ms=cuda_ms(lambda: k4.dw5x5_affine_relu_plain_nchw(x, w, sc, sh), 3, 1),
+                         library_ms=cuda_ms(lambda: F.conv2d(x, wc, padding=2, groups=C), 20),
+                         bound_ms=b_ms, bound_by=b_by))
+        del x
+    rows[0]["ragged"] = ragged
+    return rows
+
+
+def check_dw_block_mm(dev, gen):
+    """K5 at (4, 144, 280^2), (4, 144, 432^2), (4, 24, 560^2) and two ragged
+    shapes (odd C padded to 48; C = 160, the largest it takes). Tolerance
+    as K2's: 3e-2 x max(1, max|plain|), one bf16 ulp of the block output at
+    its largest magnitude after float32 sums in another order (the kernel
+    sums the 1x1 on the tensor cores). No path calls K5, so its kernels-line
+    times sum one call at each of the three shapes. Beside it, "K4 + cuDNN
+    1x1" is the same block as the refiner runs it, at the same shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from roma_torch.kernels import dw_affine_relu as k4
+    from roma_torch.kernels import dw_block_mm as k5
+    from roma_torch.kernels.dw_chain import block_plain_nchw
+
+    def inputs(B, C, H, W):
+        x, w, sc, sh = dw_inputs(gen, dev, B, C, H, W, torch.bfloat16)
+        m = (0.2 * torch.randn((C, C), generator=gen, device=dev)).to(torch.bfloat16)
+        bias = 0.1 * torch.randn((C,), generator=gen, device=dev)
+        return x, w, sc, sh, m, bias
+
+    def compare(args, what):
+        got = k5.dw5x5_affine_relu_mm_nchw(*args)
+        ref = block_plain_nchw(*args)
+        torch.cuda.synchronize()
+        tol = 3e-2 * max(1.0, ref.float().abs().max().item())
+        err = (got.float() - ref.float()).abs().max().item()
+        fail_if(not math.isfinite(err) or err > tol, f"dw_block_mm {what}: max_abs_err {err} > {tol}")
+        return err, tol
+
+    ragged = [compare(inputs(*d), f"ragged {d}")[0] for d in ((2, 37, 45, 61), (1, 160, 33, 70))]
+    rows = []
+    for label, B, C, h in DW_BLOCK_MM_SHAPES:
+        args = inputs(B, C, h, h)
+        x, w, sc, sh, m, bias = args
+        err, tol = compare(args, label)
+        m4, b4 = m.T[:, :, None, None].contiguous(), bias.to(torch.bfloat16)
+        n_pix = B * h * h
+        b_ms, b_by = bound(2 * n_pix * C * 2 + 25 * C * 2 + C * C * 2 + 3 * C * 4,
+                           n_pix * (50.0 * C + 2.0 * C * C + 4 * C))
+        rows.append(dict(shape=label, dims=[B, C, h, h], calls=1, max_abs_err=err, tol=tol,
+                         ragged_max_abs_err=ragged,
+                         ms=cuda_ms(lambda: k5.dw5x5_affine_relu_mm_nchw(*args), 20),
+                         plain_ms=cuda_ms(lambda: block_plain_nchw(*args), 3, 1),
+                         k4_cudnn_1x1_ms=cuda_ms(lambda: F.conv2d(
+                             k4.dw5x5_affine_relu_nchw(x, w, sc, sh), m4, b4), 20),
                          library_ms=None, bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -480,8 +620,9 @@ def check_small_reference(seed: int, dev):
 def print_rows(card: str, rows: dict, name: str) -> None:
     for r in rows[name]:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        tol = r["tol"] if isinstance(r["tol"], str) else f"{r['tol']:.1e}"
         print(f"[{card}] {name} {r['shape']} {r['dims']}: err {r['max_abs_err']:.3e} "
-              f"(tol {r['tol']:.1e}) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"(tol {tol}) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
 
@@ -609,7 +750,79 @@ def expected_launches(cfg) -> dict:
         "flash_attn": cfg.dinov2_depth + cfg.num_decoder_blocks,
         "corr_softmax": 0,
         "windowed_sample": 0,
+        "dw_affine_relu": sum(blocks for *_, blocks in wide_refiner_shapes(cfg)),
+        "dw_block_mm": 0,
     }
+
+
+def run_match_raw(matcher, card: str) -> dict:
+    """Path C: `match_raw` on 2 pairs of uint8 canvases from two source
+    sizes (480 x 640 and 600 x 800, zero-padded into a 600 x 800 bucket),
+    resized on the device through PIL-parity banks: a first call, the
+    counted call (the same launches as match()), 3 timed calls; then the
+    output against `match_prepped` on host PIL resizes of the same images,
+    with the JAX package's statistical bounds (mean |dwarp| < 2e-2, its 90th
+    percentile < 5e-2, mean |dcert| < 2e-2: one-uint8-level input
+    differences move a random-weight model chaotically at a few pixels),
+    and `sample_batched` on the output."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from roma_torch.kernels import LAUNCHES, reset_launches
+
+    rng = np.random.default_rng(SEED)
+    shapes = [(480, 640), (600, 800), (600, 800), (480, 640)]  # A0, A1, B0, B1
+    ims = [Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8)) for hw in shapes]
+    sizes = sorted(set(shapes))
+    bucket = (600, 800)
+    raw = np.zeros((len(ims), *bucket, 3), np.uint8)
+    for i, im in enumerate(ims):
+        raw[i, :im.height, :im.width] = np.asarray(im)
+    idx = np.array([sizes.index(hw) for hw in shapes], np.int32)
+    banks = matcher.build_resize_banks(sizes, bucket)
+
+    def timed():
+        t0 = time.perf_counter()
+        w, c = matcher.match_raw(raw, idx, banks)
+        torch.cuda.synchronize()
+        return w, c, time.perf_counter() - t0
+
+    res: dict = {}
+    _, _, res["first_match_s"] = timed()
+    reset_launches()
+    warp, cert, counted_s = timed()
+    res["launches"] = launches = dict(LAUNCHES)
+    times = [counted_s] + [timed()[2] for _ in range(3)]
+    res.update(match_s=times, pairs_per_s=PAIRS / min(times))
+    print(f"[{card}] match_raw() on 2 pairs (480x640 and 600x800 canvases): first "
+          f"{res['first_match_s']:.3f} s, then {', '.join(f'{t:.4f}' for t in times)} s; best "
+          f"{res['pairs_per_s']:.3f} pairs/s; launches {launches}", flush=True)
+    for name, n in expected_launches(matcher.cfg).items():
+        fail_if(launches[name] != n, f"match_raw: {name}: {launches[name]} launches, expected {n}")
+    check_outputs(matcher, warp, cert)
+
+    (hc, wc), (hu, wu) = matcher.cfg.coarse_resolution, matcher.cfg.upsample_resolution
+    host = lambda ids, h, w: np.stack([matcher.host_resize_np(ims[i], h, w) for i in ids])
+    wh, ch = matcher.match_prepped(host((0, 1), hc, wc), host((2, 3), hc, wc),
+                                   host((0, 1), hu, wu), host((2, 3), hu, wu))
+    dw = (warp - wh).abs().cpu().numpy()
+    dc = (cert - ch).abs().cpu().numpy()
+    res["vs_match_prepped"] = cmp = dict(
+        mean_warp_diff=float(dw.mean()), q90_warp_diff=float(np.quantile(dw, 0.9)),
+        max_warp_diff=float(dw.max()), mean_cert_diff=float(dc.mean()))
+    print(f"[{card}] match_raw vs match_prepped on host PIL resizes: {cmp}", flush=True)
+    fail_if(cmp["mean_warp_diff"] >= 2e-2 or cmp["q90_warp_diff"] >= 5e-2
+            or cmp["mean_cert_diff"] >= 2e-2, f"match_raw disagrees with match_prepped: {cmp}")
+
+    gens = [torch.Generator(device=warp.device).manual_seed(s) for s in range(PAIRS)]
+    m, c = matcher.sample_batched(warp, cert, 5000, gens)
+    fail_if(tuple(m.shape) != (PAIRS, 5000, 4) or tuple(c.shape) != (PAIRS, 5000),
+            "sample_batched() shape")
+    ref = matcher.sample(warp[1], cert[1], 5000, torch.Generator(device=warp.device).manual_seed(1))
+    fail_if(not (torch.equal(m[1], ref[0]) and torch.equal(c[1], ref[1])),
+            "sample_batched() differs from sample() with the same generator")
+    return res
 
 
 def main() -> int:
@@ -657,10 +870,19 @@ def main() -> int:
         "local_corr": check_local_corr(dev, gen, cfg),
         "dw_chain": check_dw_chain(dev, gen, cfg, matcher.model),
         "flash_attn": check_flash_attn(dev, gen, cfg),
+        "dw_affine_relu": check_dw_affine_relu(dev, gen, cfg),
+        "dw_block_mm": check_dw_block_mm(dev, gen),
     }
     report["kernel_rows"] = rows
+    torch.cuda.empty_cache()
     for name in rows:
         print_rows(card, rows, name)
+    print(f"[{card}] dw_affine_relu share of elements differing from plain: "
+          f"{[r['differing_share'] for r in rows['dw_affine_relu']]}; ragged "
+          f"{rows['dw_affine_relu'][0]['ragged']}", flush=True)
+    print(f"[{card}] dw_block_mm: K4 + cuDNN 1x1 ms "
+          f"{[r['k4_cudnn_1x1_ms'] for r in rows['dw_block_mm']]}; ragged max_abs_err "
+          f"{rows['dw_block_mm'][0]['ragged_max_abs_err']}", flush=True)
 
     expected = expected_launches(cfg)
     out_dir = args.out
@@ -682,6 +904,7 @@ def main() -> int:
         ims = [torch.rand((PAIRS, h, w, 3), generator=gen, device=dev) for _ in range(2)]
         report["profile"] = profile_match(matcher, *ims, out_dir, "roma.", "profile_match.txt")
         print(f"[{card}] profile: {json.dumps(report['profile'])}", flush=True)
+    report["match_raw"] = run_match_raw(matcher, card)
     del matcher
     torch.cuda.empty_cache()
     report["small_reference"] = check_small_reference(SEED, dev)

@@ -7,6 +7,8 @@
 | flash_attn      | csrc/flash_attn.cu      | models/transformer.py::_flash_attention             |
 | corr_softmax    | csrc/corr_softmax.cu    | ops/pallas/corr_softmax.py::fused_pos_embed         |
 | windowed_sample | csrc/windowed_sample.cu | ops/pallas/windowed_sample.py::grid_sample_smooth   |
+| dw_affine_relu  | csrc/dw_affine_relu.cu  | ops/pallas/depthwise.py::dw5x5_affine_relu          |
+| dw_block_mm     | csrc/dw_block_mm.cu     | ops/pallas/depthwise.py::dw5x5_affine_relu_mm       |
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel (or raises) for CUDA tensors. Building is lazy (`runtime.load`).

@@ -15,9 +15,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from roma_torch.kernels import runtime
+from roma_torch.kernels.dw_affine_relu import dw5x5_affine_relu_plain_nchw
 
 NAME = "dw_chain"
 CHANNELS = (8, 16, 24, 32)
@@ -28,10 +28,7 @@ def block_plain_nchw(x, w, scale, shift, m, bias):
     m (C,C) with z[d] = sum_c m[c, d] y[c]. Same rounding points as the
     JAX package's `_mm_reference`: the ReLU output and the block output are
     rounded to x's dtype; the sums are float32."""
-    C = x.shape[1]
-    y = F.conv2d(x.float(), w.float().permute(2, 0, 1)[:, None], padding=2, groups=C)
-    y = y * scale.float()[:, None, None] + shift.float()[:, None, None]
-    y = torch.relu(y).to(x.dtype)
+    y = dw5x5_affine_relu_plain_nchw(x, w, scale, shift)
     z = torch.einsum("bchw,cd->bdhw", y.float(), m.float()) + bias.float()[:, None, None]
     return z.to(x.dtype)
 

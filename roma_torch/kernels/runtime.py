@@ -34,6 +34,8 @@ SOURCES = {
     "flash_attn": "flash_attn.cu",
     "corr_softmax": "corr_softmax.cu",
     "windowed_sample": "windowed_sample.cu",
+    "dw_affine_relu": "dw_affine_relu.cu",
+    "dw_block_mm": "dw_block_mm.cu",
 }
 
 NVCC_FLAGS = [

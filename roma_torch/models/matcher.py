@@ -20,6 +20,7 @@ from torch.profiler import record_function
 
 from roma_torch.config import RomaConfig
 from roma_torch.device import resolve_device
+from roma_torch.models import api
 from roma_torch.models.dinov2 import DinoViT
 from roma_torch.models.gp import GP
 from roma_torch.models.layers import batch_norm, conv2d
@@ -27,7 +28,8 @@ from roma_torch.models.refiner import ConvRefiner
 from roma_torch.models.transformer import TransformerDecoder
 from roma_torch.models.vgg import VGG19
 from roma_torch.ops.corr import coord_grid
-from roma_torch.ops.resize import interpolate_bilinear, resize_bicubic
+from roma_torch.ops.resize import (interpolate_bilinear, pil_bicubic_matrix,
+                                   pil_bicubic_resize_device, resize_bicubic)
 from roma_torch.utils.geometry import cls_to_flow_refine, normalized_to_pixel
 from roma_torch.utils.sampling import sample_matches
 
@@ -221,6 +223,12 @@ class RomaMatcher:
         r = pil_im.convert("RGB").resize((ws, hs), Image.BICUBIC)
         return np.array(r, np.uint8)
 
+    def host_prep_np(self, pil_im, hs: int, ws: int) -> np.ndarray:
+        """PIL bicubic resize + ImageNet normalisation on the host ->
+        (hs, ws, 3) float32."""
+        x = self.host_resize_np(pil_im, hs, ws).astype(np.float32) / 255.0
+        return (x - IMAGENET_MEAN) / IMAGENET_STD
+
     def _as_normalized(self, x) -> torch.Tensor:
         x = self._to_device(x)
         if x.dtype == torch.uint8:
@@ -315,14 +323,84 @@ class RomaMatcher:
             return warp, certainty
         return warp[0], certainty[0]
 
+    # ---- device resize: original-resolution uint8 canvases in, both passes'
+    # model-resolution inputs made on the device by PIL-parity matrices
+    def build_resize_banks(self, sizes, bucket):
+        """Resize matrix banks on the matcher's device. sizes: the unique
+        source (h, w); bucket: (Hb, Wb), the padded canvas (>= every source).
+        Returns (ry_c, rx_c[, ry_u, rx_u]): bank row i resizes a zero-padded
+        (Hb, Wb) canvas holding a sizes[i] image as PIL BICUBIC resizes the
+        unpadded image. Build once, reuse for every batch."""
+        hb, wb = bucket
+        res = [self.cfg.coarse_resolution]
+        if self.cfg.upsample_preds:
+            res.append(self.cfg.upsample_resolution)
+        banks = []
+        for ho, wo in res:
+            for mats in ([pil_bicubic_matrix(h, ho, hb) for h, _ in sizes],
+                         [pil_bicubic_matrix(w, wo, wb) for _, w in sizes]):
+                banks.append(torch.from_numpy(np.stack(mats)).to(self.device))
+        return tuple(banks)
+
+    @staticmethod
+    def _prep_raw_impl(raw, idx, ry_c, rx_c, ry_u=None, rx_u=None, *, up=False):
+        """(2B, Hb, Wb, 3) uint8 canvases and their bank rows -> ImageNet-
+        normalized model-resolution batches: the coarse one, and with `up`
+        also the upsample one."""
+        x = raw.float()
+        mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
+        std = torch.as_tensor(IMAGENET_STD, device=x.device)
+        xc = (pil_bicubic_resize_device(x, ry_c[idx], rx_c[idx]) / 255.0 - mean) / std
+        if not up:
+            return xc
+        xu = (pil_bicubic_resize_device(x, ry_u[idx], rx_u[idx]) / 255.0 - mean) / std
+        return xc, xu
+
+    @torch.inference_mode()
+    def match_raw(self, raw, idx, banks):
+        """Batched two-pass match from original-resolution uint8 canvases.
+        raw: (2B, Hb, Wb, 3) uint8, zero-padded originals, the B A-images
+        over the B B-images; idx: (2B,) bank rows; banks: from
+        `build_resize_banks`. Equals `match_prepped` on host PIL resizes up
+        to the one-uint8-level parity of the matrix resize."""
+        raw = self._to_device(raw)
+        idx = self._to_device(idx).long()
+        B = raw.shape[0] // 2
+        up = self.cfg.upsample_preds
+        with record_function("roma.preprocess"):
+            prepped = self._prep_raw_impl(raw, idx, *banks, up=up)
+        if not up:
+            return self.match_prepped(prepped[:B], prepped[B:])
+        xc, xu = prepped
+        return self.match_prepped(xc[:B], xc[B:], xu[:B], xu[B:])
+
     @torch.inference_mode()
     def sample(self, warp, certainty, num: int = 10000,
                generator: torch.Generator | None = None):
         return sample_matches(warp, certainty, num=num,
                               sample_thresh=self.cfg.sample_thresh, generator=generator)
 
+    @torch.inference_mode()
+    def sample_batched(self, warps, certs, num: int, generators):
+        """Per-pair `sample` over the batch axis, pair i with generators[i]:
+        (B, ..., 4), (B, ...) -> (B, num, 4), (B, num)."""
+        out = [self.sample(w, c, num=num, generator=g)
+               for w, c, g in zip(warps, certs, generators, strict=True)]
+        return torch.stack([m for m, _ in out]), torch.stack([c for _, c in out])
+
     def to_pixel_coordinates(self, coords, h_a, w_a, h_b=None, w_b=None):
         if coords.shape[-1] == 2:
             return normalized_to_pixel(coords, h_a, w_a)
         return (normalized_to_pixel(coords[..., :2], h_a, w_a),
                 normalized_to_pixel(coords[..., 2:], h_b, w_b))
+
+    def match_keypoints(self, x_a, x_b, warp, certainty, **kw):
+        return api.match_keypoints(x_a, x_b, warp, certainty,
+                                   sample_thresh=self.cfg.sample_thresh, **kw)
+
+    def conf_from_fb_consistency(self, flow_forward, flow_backward, th: float = 2.0):
+        return api.conf_from_fb_consistency(flow_forward, flow_backward, th)
+
+    def visualize_warp(self, warp, certainty, im_a, im_b, save_path=None):
+        return api.visualize_warp(warp, certainty, im_a, im_b,
+                                  symmetric=self.cfg.symmetric, save_path=save_path)

@@ -7,16 +7,20 @@ block1 + N hidden depthwise-separable blocks (k=5 grouped conv -> BN ->
 ReLU -> 1x1 conv, BN folded into a scale/shift at inference), and emits
 (delta_flow, delta_certainty) from a float32 1x1 head.
 
-Kernel gates, as in the JAX package:
+Kernel gates:
 - local correlation goes to the local-correlation kernel for r <= 7 and
-  C % 128 == 0 (scales 16/8/4);
+  C % 128 == 0 (scales 16/8/4), as in the JAX package;
 - a narrow stack (hidden_dim < 64, k = 5, input width == hidden_dim: the
-  scale-1 refiner) runs as one chain through the fused block kernel;
+  scale-1 refiner) runs as one chain through the fused block kernel, as in
+  the JAX package;
+- every other block with k = 5 (scales 16/8/4/2) runs its depthwise conv +
+  affine + ReLU through the wide-channel depthwise kernel and its 1x1 as a
+  plain conv2d. The JAX package calls the same function there but takes
+  its Pallas body only for C < 64;
 - with `smooth_warp` set (RomaConfig.smooth_warp_gather), the warp of a map
   with <= 16 channels (the scale-1 refiner's 9) goes through the windowed
-  warp-gather kernel in "fast" or "exact" mode.
-The kernel wrappers take their plain versions for CPU tensors. Scales
-16/8/4/2 run their blocks as plain conv2d(groups=C) + affine + ReLU + 1x1.
+  warp-gather kernel in "fast" or "exact" mode, as in the JAX package.
+The kernel wrappers take their plain versions for CPU tensors.
 
 Features are NCHW inside; flows are (B, H, W, 2) as in the JAX package.
 """
@@ -25,9 +29,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from roma_torch.kernels import dw_chain
+from roma_torch.kernels import dw_affine_relu, dw_chain
 from roma_torch.kernels import local_corr as local_corr_kernel
 from roma_torch.kernels.windowed_sample import grid_sample_smooth_nchw
 from roma_torch.models.layers import conv2d
@@ -63,10 +66,10 @@ class DWBlock(nn.Sequential):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         w, inv, shift, _, _ = self.fused(dt)
-        C = x.shape[1]
-        k = w.shape[0]
-        y = F.conv2d(x.float(), w.float().permute(2, 0, 1)[:, None], padding=k // 2, groups=C)
-        y = torch.relu(y * inv[:, None, None] + shift[:, None, None]).to(dt)
+        if w.shape[0] == 5:
+            y = dw_affine_relu.dw5x5_affine_relu_nchw(x.contiguous(), w.contiguous(), inv, shift)
+        else:
+            y = dw_affine_relu.dw5x5_affine_relu_plain_nchw(x, w, inv, shift)
         return conv2d(self[3], y, dt)
 
 

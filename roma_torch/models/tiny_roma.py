@@ -25,12 +25,13 @@ from torch.profiler import record_function
 from roma_torch.config import TinyRomaConfig
 from roma_torch.device import resolve_device
 from roma_torch.kernels.corr_softmax import fused_pos_embed
+from roma_torch.models import api
 from roma_torch.models.layers import ConvBlock, conv2d
 from roma_torch.models.xfeat import XFeatBackbone
 from roma_torch.ops.band_corr import banded_pos_embed, row_pos_embed
 from roma_torch.ops.corr import coord_grid, corr_volume, pos_embed_expectation, pos_embed_fast
 from roma_torch.ops.grid_sample import grid_sample_nchw
-from roma_torch.ops.resize import interpolate_bilinear
+from roma_torch.ops.resize import interpolate_bilinear, pad_to_multiple
 from roma_torch.utils.geometry import normalized_to_pixel
 from roma_torch.utils.sampling import sample_matches
 
@@ -142,9 +143,8 @@ class TinyRoma(nn.Module):
 
 class TinyRomaMatcher:
     """User-facing Tiny RoMa matcher: /32 preprocessing, the forward, a
-    dense warp and certainty at the input resolution, balanced sampling.
-    `match_keypoints`, `conf_from_fb_consistency` and `visualize_warp` wait
-    for the port of the JAX package's `models/api.py`."""
+    dense warp and certainty at the input resolution, balanced sampling,
+    and the shared `models/api.py` utilities (one-sided warps)."""
 
     def __init__(self, model: TinyRoma, device=None):
         self.device = resolve_device(device)
@@ -153,8 +153,7 @@ class TinyRomaMatcher:
 
     def preprocess(self, im: torch.Tensor) -> torch.Tensor:
         """Bilinear resize (B, H, W, 3) to multiples of 32."""
-        h, w = im.shape[-3], im.shape[-2]
-        return interpolate_bilinear(im, ((h // 32) * 32, (w // 32) * 32))
+        return pad_to_multiple(im, 32)
 
     @torch.inference_mode()
     def forward(self, im_a: torch.Tensor, im_b: torch.Tensor):
@@ -202,3 +201,14 @@ class TinyRomaMatcher:
             return normalized_to_pixel(coords, h_a, w_a)
         return (normalized_to_pixel(coords[..., :2], h_a, w_a),
                 normalized_to_pixel(coords[..., 2:], h_b, w_b))
+
+    def match_keypoints(self, x_a, x_b, warp, certainty, **kw):
+        return api.match_keypoints(x_a, x_b, warp, certainty,
+                                   sample_thresh=self.cfg.sample_thresh, **kw)
+
+    def conf_from_fb_consistency(self, flow_forward, flow_backward, th: float = 2.0):
+        return api.conf_from_fb_consistency(flow_forward, flow_backward, th)
+
+    def visualize_warp(self, warp, certainty, im_a, im_b, save_path=None):
+        return api.visualize_warp(warp, certainty, im_a, im_b, symmetric=False,
+                                  save_path=save_path)

@@ -7,10 +7,16 @@ at the public functions, as in the JAX package's `ops/resize.py`.
 - `resize_bicubic`: Keys cubic with a=-0.5, filter widened on downscale and
   weights renormalised over the taps inside the image. That is PyTorch's
   antialiased bicubic (``antialias=True``), not its plain a=-0.75 bicubic.
+- `interpolate_nearest`: nearest with half-pixel centers (PyTorch's
+  "nearest-exact").
 - `torch_bicubic_resize`: the a=-0.75, clamped-border bicubic of
   ``F.interpolate(mode="bicubic")`` written as two interpolation matrices,
   so the caller-passed coordinate scale (DINOv2's ``+0.1`` pos-embed
   offset) is kept exactly.
+- `pil_bicubic_matrix` / `pil_bicubic_resize_device`: PIL's antialiased
+  BICUBIC resize as two interpolation matrices with PIL's per-pass uint8
+  rounding, so zero-padded canvases of any source size resize on the device
+  as PIL resizes the unpadded image (the matcher's `match_raw`).
 """
 
 from __future__ import annotations
@@ -35,6 +41,18 @@ def interpolate_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor
             t, size=tuple(size), mode="bilinear", align_corners=False
         ),
     )
+
+
+def interpolate_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize, half-pixel centers (NHWC)."""
+    return _nhwc_call(x, lambda t: F.interpolate(t, size=tuple(size), mode="nearest-exact"))
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int = 32) -> torch.Tensor:
+    """Bilinear resize of (..., H, W, C) to (H // multiple * multiple,
+    W // multiple * multiple), the reference's `preprocess_tensor` contract."""
+    h, w = x.shape[-3], x.shape[-2]
+    return interpolate_bilinear(x, ((h // multiple) * multiple, (w // multiple) * multiple))
 
 
 def resize_bicubic(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -88,3 +106,57 @@ def torch_bicubic_resize(
     mw = torch.as_tensor(torch_bicubic_matrix(w_in, w, sw), **kw)
     y = torch.einsum("hi,...iwc->...hwc", mh, x.float())
     return torch.einsum("wj,...hjc->...hwc", mw, y).to(x.dtype)
+
+
+def _pil_bicubic_filter(x: np.ndarray) -> np.ndarray:
+    """PIL's BICUBIC filter: Keys cubic with a=-0.5, support 2."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(
+        x < 1.0,
+        ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+        np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0),
+    )
+
+
+def pil_bicubic_matrix(n_in: int, n_out: int, n_cols: int | None = None) -> np.ndarray:
+    """(n_out, n_cols or n_in) float32 matrix of PIL's antialiased BICUBIC
+    along one axis (Pillow's precompute_coeffs): support widened by the
+    downscale factor, window [int(center - support + .5), int(center +
+    support + .5)) clipped to the source, weights normalised over it.
+    Columns past `n_in` (a zero-padded canvas) are zero."""
+    if n_cols is None:
+        n_cols = n_in
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    center = (np.arange(n_out, dtype=np.float64) + 0.5) * scale
+    m = np.zeros((n_out, n_cols), np.float64)
+    for i in range(n_out):
+        xmin = max(int(center[i] - support + 0.5), 0)
+        xmax = min(int(center[i] + support + 0.5), n_in)
+        xs = np.arange(xmin, xmax, dtype=np.float64)
+        w = _pil_bicubic_filter((xs - center[i] + 0.5) / filterscale)
+        s = w.sum()
+        if s != 0.0:
+            w = w / s
+        m[i, xmin:xmax] = w
+    return m.astype(np.float32)
+
+
+def pil_round_u8(x: torch.Tensor) -> torch.Tensor:
+    """PIL's per-pass 8-bit store: round half up, clamp to [0, 255]."""
+    return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
+
+
+def pil_bicubic_resize_device(x: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
+    """PIL-parity antialiased bicubic through interpolation matrices.
+
+    x: (..., H, W, C) float32 in [0, 255]; ry: (..., h_out, H); rx:
+    (..., w_out, W). Horizontal pass, round, vertical pass, round, as PIL's
+    8-bit path does: within one uint8 level of ``PIL.Image.resize(...,
+    BICUBIC)``. Both products stay full float32 (the package turns TF32
+    off), or the per-pass ``floor(x + 0.5)`` would cross rounding
+    boundaries."""
+    hp = pil_round_u8(torch.einsum("...wj,...hjc->...hwc", rx.float(), x.float()))
+    return pil_round_u8(torch.einsum("...hi,...iwc->...hwc", ry.float(), hp))

@@ -53,7 +53,9 @@ def test_port_imports_no_jax_or_jax_package():
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"roma_torch/models/tiny_roma.py", "roma_torch/models/xfeat.py",
             "roma_torch/ops/band_corr.py", "roma_torch/ops/windowed_sample.py",
-            "roma_torch/kernels/corr_softmax.py", "roma_torch/kernels/windowed_sample.py"} <= names
+            "roma_torch/kernels/corr_softmax.py", "roma_torch/kernels/windowed_sample.py",
+            "roma_torch/kernels/dw_affine_relu.py", "roma_torch/kernels/dw_block_mm.py",
+            "roma_torch/models/api.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -75,7 +77,7 @@ def test_kernel_build_is_lazy_and_named_by_content():
     from roma_torch.kernels import LAUNCHES, reset_launches, runtime
 
     assert set(runtime.SOURCES) == {"local_corr", "dw_chain", "flash_attn", "corr_softmax",
-                                    "windowed_sample"}
+                                    "windowed_sample", "dw_affine_relu", "dw_block_mm"}
     for name, src in runtime.SOURCES.items():
         assert (runtime.CSRC / src).exists()
         p = runtime.lib_path(name)

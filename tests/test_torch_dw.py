@@ -1,0 +1,178 @@
+"""The plain versions of the port's wide-channel depthwise block (K4) and
+whole-block (K5) kernels, and the refiner's DWBlock that runs K4, against
+the JAX functions on the CPU: the Pallas kernels in interpret mode (as the
+JAX package's own tests run them) and the JAX reference. The wrappers take
+these plain versions for CPU tensors."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from roma_tpu.models import port as jport
+from roma_tpu.models.refiner import DWBlock as JDWBlock
+from roma_tpu.ops.pallas import depthwise as jdw
+from roma_torch.kernels import dw_affine_relu as k4
+from roma_torch.kernels import dw_block_mm as k5
+from roma_torch.kernels import LAUNCHES, dw_chain
+from roma_torch.kernels.dw_chain import block_plain_nchw
+from roma_torch.models.refiner import ConvRefiner, DWBlock
+
+SHAPES = [(2, 23, 31, 24), (1, 40, 40, 144), (2, 16, 20, 569), (1, 11, 13, 9)]
+
+
+def _inputs(rng, shape):
+    """bf16 x (B,H,W,C) and w (5,5,C) (x 0.2), scale in [0.5, 1.5], shift
+    x 0.1, as the JAX package's kernel tests make them; numpy float32."""
+    C = shape[-1]
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+    return (bf(rng.standard_normal(shape)), bf(rng.standard_normal((5, 5, C)) * 0.2),
+            rng.uniform(0.5, 1.5, (C,)).astype(np.float32),
+            (rng.standard_normal((C,)) * 0.1).astype(np.float32))
+
+
+def _bf(a):
+    return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16)
+
+
+def _one_ulp(got, ref):
+    """Elementwise one bf16 ulp of the element's own value: |got - ref| <=
+    2^-7 |ref| + 1e-5 (only the float32 sum order differs before the one
+    rounding)."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    tol = 2.0 ** -7 * np.abs(ref) + 1e-5
+    err = np.abs(got - ref)
+    assert np.all(err <= tol), f"max err {err.max():.3g}, worst err/tol {(err / tol).max():.3g}"
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "ncw"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_dw_affine_relu_plain_matches_pallas_interpret(rng, shape, layout):
+    """K4's plain version against `_pallas_call(interpret=True)` in both
+    Pallas layouts and against `_jax_reference`, at the JAX test's shapes
+    (C = 569 and the odd C = 9 included), bf16 in and out. One bf16 ulp
+    elementwise; measured: equal to the Pallas kernel but for a few
+    elements (max 3e-8), within one ulp of the XLA reference at <= 3e-5 of
+    the elements (max 1.2e-4)."""
+    x, w, sc, sh = _inputs(rng, shape)
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    ref = jdw._pallas_call(jx, jw, jnp.asarray(sc), jnp.asarray(sh), interpret=True, layout=layout)
+    plain = jdw._jax_reference(jx, jw, jnp.asarray(sc), jnp.asarray(sh))
+    got = k4.dw5x5_affine_relu_plain_nchw(_bf(x).permute(0, 3, 1, 2), _bf(w),
+                                          torch.from_numpy(sc), torch.from_numpy(sh))
+    assert got.dtype == torch.bfloat16 and got.shape == (shape[0], shape[3], *shape[1:3])
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    _one_ulp(got, ref)
+    _one_ulp(got, plain)
+
+
+@pytest.mark.parametrize("data_format", ["NHWC", "NHCW"])
+def test_dw_affine_relu_jax_layouts(rng, data_format):
+    """The JAX-layout entry in both layouts against the JAX function, bf16,
+    one bf16 ulp elementwise; CPU tensors launch nothing."""
+    x, w, sc, sh = _inputs(rng, (2, 14, 19, 24))
+    if data_format == "NHCW":
+        x = np.ascontiguousarray(x.transpose(0, 1, 3, 2))
+    ref = jdw.dw5x5_affine_relu(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+                                jnp.asarray(sc), jnp.asarray(sh), data_format)
+    n0 = LAUNCHES["dw_affine_relu"]
+    got = k4.dw5x5_affine_relu(_bf(x), _bf(w), torch.from_numpy(sc), torch.from_numpy(sh),
+                               data_format)
+    assert LAUNCHES["dw_affine_relu"] == n0
+    assert tuple(got.shape) == x.shape
+    _one_ulp(got.float().numpy(), ref)
+    with pytest.raises(ValueError, match="data_format"):
+        k4.dw5x5_affine_relu(_bf(x), _bf(w), torch.from_numpy(sc), torch.from_numpy(sh), "NCHW")
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 19, 24), (1, 33, 40, 144)])
+def test_dw_block_mm_plain_matches_pallas_interpret(rng, shape):
+    """K5's plain version (`block_plain_nchw`) through the JAX-layout entry
+    against `_mm_tpu_path(interpret=True)` and `_mm_reference`, x (B,H,C,W)
+    bf16, m and bias as in the JAX test. Tolerance: the JAX test's 5e-2 abs
+    + 2e-2 rel against the Pallas kernel (its MXU rounds the ReLU output to
+    bf16 as well, sums in another order); one bf16 ulp + 1e-5 against the
+    reference, which rounds at the same two points."""
+    B, H, W, C = shape
+    x, w, sc, sh = _inputs(rng, shape)
+    m = np.asarray(jnp.asarray(rng.standard_normal((C, C)) * 0.2, jnp.bfloat16).astype(jnp.float32))
+    bias = (rng.standard_normal((C,)) * 0.1).astype(np.float32)
+    xt = np.ascontiguousarray(x.transpose(0, 1, 3, 2))
+    j = lambda a: jnp.asarray(a, jnp.bfloat16)
+    ref = jdw._mm_tpu_path(j(xt), j(w), jnp.asarray(sc), jnp.asarray(sh), j(m),
+                           jnp.asarray(bias), interpret=True)
+    ref_plain = jdw._mm_reference(j(x), j(w), jnp.asarray(sc), jnp.asarray(sh), j(m),
+                                  jnp.asarray(bias))
+    got = k5.dw5x5_affine_relu_mm(_bf(xt), _bf(w), torch.from_numpy(sc), torch.from_numpy(sh),
+                                  _bf(m), torch.from_numpy(bias))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, H, C, W)
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32), atol=5e-2, rtol=2e-2)
+    _one_ulp(got.transpose(0, 1, 3, 2), ref_plain)
+    # the NCHW entry on a CPU tensor is the plain version itself
+    xn = _bf(x).permute(0, 3, 1, 2).contiguous()
+    args = (_bf(w), torch.from_numpy(sc), torch.from_numpy(sh), _bf(m), torch.from_numpy(bias))
+    assert torch.equal(k5.dw5x5_affine_relu_mm_nchw(xn, *args), block_plain_nchw(xn, *args))
+
+
+def _randomize_bn(bn, rng):
+    c = bn.num_features
+    bn.running_mean.copy_(torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1))
+    bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)))
+    bn.weight.data.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)))
+    bn.bias.data.copy_(torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [144, 569])
+@torch.no_grad()
+def test_dwblock_matches_jax_dwblock(rng, C, dtype):
+    """The port's DWBlock (K4's plain version + the 1x1) against the JAX
+    DWBlock at the scale-2 and scale-4 widths, randomised BatchNorm
+    statistics, weights carried with the JAX package's port helpers.
+    float32: 1e-4 abs (measured 7e-7). bfloat16: 2^-6 x max(1, max|ref|)
+    abs, two bf16 ulps at the largest output (the JAX side rounds the 1x1
+    output and adds a bf16 bias, the port adds the bias before its one
+    rounding; the ReLU output may differ by one ulp); measured 7.8e-3, one
+    ulp at outputs of ~1.3."""
+    torch.manual_seed(0)
+    blk = DWBlock(C).eval()
+    _randomize_bn(blk[1], rng)
+    sd = {k: v.numpy() for k, v in blk.state_dict().items()}
+    params, stats = {}, {}
+    jport.port_conv(sd, "0", params, ("conv1",))
+    jport.port_batchnorm(sd, "1", params, stats, ("norm",))
+    jport.port_conv(sd, "3", params, ("conv2",))
+    x = rng.standard_normal((2, 9, 11, C)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    ref = JDWBlock(C, dtype=getattr(jnp, dtype)).apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x, getattr(jnp, dtype)))
+    ref = np.asarray(ref, np.float32)
+    got = blk(torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2))
+    assert got.dtype == tdt
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -6 * max(1.0, np.abs(ref).max())
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+
+
+@torch.no_grad()
+def test_refiner_routes_wide_blocks_through_k4(rng, monkeypatch):
+    """Every block of a wide stack calls the K4 wrapper; the scale-1 chain
+    (hidden_dim < 64) never does and goes through the chain wrapper once."""
+    calls, chains = [], []
+    real, real_chain = k4.dw5x5_affine_relu_nchw, dw_chain.chain_nchw
+    monkeypatch.setattr(k4, "dw5x5_affine_relu_nchw",
+                        lambda x, *a: calls.append(tuple(x.shape)) or real(x, *a))
+    monkeypatch.setattr(dw_chain, "chain_nchw",
+                        lambda x, *a: chains.append(tuple(x.shape)) or real_chain(x, *a))
+    B, H, W = 1, 6, 7
+    for C, emb, blocks, n_k4, n_chain in ((64, 16, 2, 3, 0), (9, 6, 2, 0, 1)):
+        hidden = 2 * C + emb
+        torch.manual_seed(0)
+        ref = ConvRefiner(hidden, hidden, emb, None, hidden_blocks=blocks).eval()
+        calls.clear()
+        chains.clear()
+        ref(torch.randn(B, C, H, W), torch.randn(B, C, H, W), torch.rand(B, H, W, 2) * 2 - 1)
+        assert len(calls) == n_k4 and all(s == (B, hidden, H, W) for s in calls)
+        assert len(chains) == n_chain
