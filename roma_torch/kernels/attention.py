@@ -4,8 +4,9 @@ and the wrapper.
 Replaces the TPU kernel reached from ``roma_tpu/models/transformer.py::
 _flash_attention`` (the Pallas TPU flash_attention kernel). Computes
 softmax(q k^T / sqrt(d)) v on (B, N, H, d), no mask. Bound and design: see
-the note at the top of the CUDA source (operations; mma.sync bf16 tiles
-with an online softmax, the logits never leave the SM).
+the note at the top of the CUDA source (operations; TMA loads of q/k/v
+views into a mbarrier ring, wgmma for both products with an online softmax
+in registers, the logits never leave the SM).
 """
 
 from __future__ import annotations

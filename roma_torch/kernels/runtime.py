@@ -3,8 +3,9 @@
 Each source under ``roma_torch/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, at first
 use, into ``build/kernels/`` at the repo root, and loaded with ctypes. The
-library name carries a hash of the sources and flags, so an edited source
-is rebuilt and a stale library is never loaded. Nothing here runs at import
+library name carries a hash of the flags, the source and every shared
+header, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing here runs at import
 time: the package imports on machines without ``nvcc`` or a GPU.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
@@ -64,9 +65,12 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / SOURCES[name]).read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    """The library's path, named by a hash of the full flag list, the
+    source and every header under csrc/ (any of which it may include), so
+    that an edit to any of them rebuilds it."""
+    h = hashlib.sha1("\0".join(NVCC_FLAGS).encode())
+    for path in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"libroma_{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -122,7 +126,9 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    # by device index: the lookup by torch.device costs twice as much host
+    # time, which the smallest kernels' launches cannot spare
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device.index).cuda_stream)
 
 
 def require(name: str, t: torch.Tensor, shape, dtype: torch.dtype,

@@ -89,6 +89,28 @@ def test_kernel_build_is_lazy_and_named_by_content():
     assert set(LAUNCHES.values()) == {0}
 
 
+@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh"])
+def test_kernel_names_change_with_any_header(tmp_path, monkeypatch, header):
+    """A one-byte edit of any shared header renames every kernel's library,
+    so no stale build is loaded; so does a change of the compiler flags."""
+    import shutil
+
+    from roma_torch.kernels import runtime
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(runtime.CSRC, csrc)
+    monkeypatch.setattr(runtime, "CSRC", csrc)
+    before = {name: runtime.lib_path(name) for name in runtime.SOURCES}
+    path = csrc / header
+    data = bytearray(path.read_bytes())
+    data[-1] ^= 1
+    path.write_bytes(bytes(data))
+    after = {name: runtime.lib_path(name) for name in runtime.SOURCES}
+    assert all(after[name] != before[name] for name in runtime.SOURCES)
+    monkeypatch.setattr(runtime, "NVCC_FLAGS", [*runtime.NVCC_FLAGS, "-DROMA_TEST"])
+    assert all(runtime.lib_path(name) != after[name] for name in runtime.SOURCES)
+
+
 @pytest.mark.parametrize("mode", [False, True, "exact", "fast"])
 def test_smooth_warp_gather_reaches_the_scale1_refiner(mode):
     """`roma_outdoor(smooth_warp_gather=...)` builds (no longer raises) and

@@ -176,3 +176,64 @@ def test_refiner_routes_wide_blocks_through_k4(rng, monkeypatch):
         ref(torch.randn(B, C, H, W), torch.randn(B, C, H, W), torch.rand(B, H, W, 2) * 2 - 1)
         assert len(calls) == n_k4 and all(s == (B, hidden, H, W) for s in calls)
         assert len(chains) == n_chain
+
+
+# K4's band plan at every main-path plane (refiners 16/8/4/2 at 560 -> 864)
+# and the ragged planes chip_smoke.py checks on the card
+PLAN_SHAPES = [(40, 40), (70, 70), (140, 140), (280, 280), (108, 108), (216, 216), (432, 432),
+               (37, 45), (71, 130), (19, 67), (200, 131), (1, 131), (77, 1), (13, 7),
+               (1000, 45), (9, 45), (1, 1)]
+
+
+def _bands(plan, H):
+    return [(y0, min(y0 + plan.rows, H)) for y0 in range(0, H, plan.rows)]
+
+
+@pytest.mark.parametrize("H,W", PLAN_SHAPES)
+def test_dw_band_plan_covers_each_row_once(H, W):
+    """Every output row in exactly one band, each band's halo inside its
+    plane, several planes to a block only where a plane is one band, and
+    the block within the H100's 227 KB of shared memory."""
+    plan = k4.band_plan(H, W)
+    bands = _bands(plan, H)
+    rows = [y for y0, y1 in bands for y in range(y0, y1)]
+    assert rows == list(range(H))
+    for y0, y1 in bands:
+        ya, yb = max(y0 - 2, 0), min(y1 + 2, H)
+        assert 0 <= ya <= y0 < y1 <= yb <= H
+    assert 1 <= plan.planes <= 8 and (plan.planes == 1 or plan.rows == H)
+    assert plan.smem_bytes == k4.plan_bytes(W, plan.rows, plan.planes) <= k4.SMEM_MAX
+
+
+def test_dw_band_plan_raises_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        k4.band_plan(8, 8000)
+
+
+@pytest.mark.parametrize("H,W", [(140, 140), (1000, 45), (77, 1), (1, 131), (13, 7)])
+def test_dw_band_emulation_equals_plain(rng, H, W):
+    """The kernel's bands emulated in plain PyTorch: each band's rows plus
+    halo read as one flat range of the plane, zero rows added where the
+    halo leaves the plane, a conv with width padding only. Equal to
+    `dw5x5_affine_relu_plain_nchw` on the whole plane within 1e-6, fp32
+    (the CPU conv may sum a band in another order than the whole plane)."""
+    B, C = 2, 3
+    x = torch.from_numpy(rng.standard_normal((B, C, H, W)).astype(np.float32))
+    w = torch.from_numpy((0.2 * rng.standard_normal((5, 5, C))).astype(np.float32))
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    sh = torch.from_numpy((0.1 * rng.standard_normal(C)).astype(np.float32))
+    plan = k4.band_plan(H, W)
+    flat = x.reshape(B * C, H * W)
+    out = []
+    for y0, y1 in _bands(plan, H):
+        ya, yb = max(y0 - 2, 0), min(y1 + 2, H)
+        rows = flat[:, ya * W:yb * W].reshape(B * C, yb - ya, W)
+        rows = torch.cat([rows.new_zeros(B * C, ya - (y0 - 2), W), rows,
+                          rows.new_zeros(B * C, y1 + 2 - yb, W)], dim=1)
+        y = torch.nn.functional.conv2d(rows.reshape(B, C, -1, W), w.permute(2, 0, 1)[:, None],
+                                       padding=(0, 2), groups=C)
+        out.append(torch.relu(y * sc[:, None, None] + sh[:, None, None]))
+    got = torch.cat(out, dim=2)
+    ref = k4.dw5x5_affine_relu_plain_nchw(x, w, sc, sh)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6, rtol=0)

@@ -118,6 +118,18 @@ def test_attention_plain_matches_pallas_interpret(rng, n, h, d):
     np.testing.assert_allclose(got.numpy(), exact, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("n,d", [(1601, 64), (1600, 128)])
+def test_attention_plain_matches_jax_at_model_tokens(rng, n, d):
+    """The ragged-tail reference at the real token counts (DINOv2's 1601,
+    the decoder's 1600): the plain version against the JAX Attention's
+    off-TPU path, `jax.nn.dot_product_attention`, fp32, one head.
+    Tolerance 1e-5 (float32 sums in another order)."""
+    q, k, v = (rng.standard_normal((1, n, 1, d)).astype(np.float32) for _ in range(3))
+    got = tattn.attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    exact = np.asarray(jax.nn.dot_product_attention(q, k, v))
+    np.testing.assert_allclose(got.numpy(), exact, atol=1e-5, rtol=0)
+
+
 def test_attention_plain_takes_strided_qkv_views(rng):
     """The model hands the wrapper views of a fused qkv projection."""
     B, N, H, d = 2, 33, 2, 64
