@@ -13,9 +13,10 @@
    match), plus ragged shapes where the tiling has edges (attention at
    N = 1, 63, 65, 129, 193 and 1601, both head widths, qkv views and
    contiguous tensors; the depthwise block at rows that are not 16-byte
-   aligned, 1 x W and H x 1 planes, sizes off a multiple of 8), and times
-   the kernel (and prints it as a share of its bound), the plain version
-   and, where one exists, the single PyTorch call computing the same
+   aligned, 1 x W and H x 1 planes, sizes off a multiple of 8; the chained
+   scale-1 block one block at a time within one bf16 ulp, C = 5 to 64),
+   and times the kernel (and prints it as a share of its bound), the plain
+   version and, where one exists, the single PyTorch call computing the same
    function (SDPA for attention and the correlation softmax, F.grid_sample
    for the windowed gather, cuDNN's depthwise conv for the wide depthwise
    block). The whole-block kernel (dw_block_mm) is on no model path, as in
@@ -31,7 +32,8 @@
 6. match_raw on 2 pairs of uint8 canvases from two source sizes, resized
    on the device: counted (the same launches as match()), timed, held
    against match_prepped on host PIL resizes, then sample_batched; then the
-   debug-size model on the GPU against the same weights on the CPU;
+   debug-size model on the GPU against the same weights on the CPU, with
+   its flow differences per scale of both passes;
 7. Tiny RoMa v1 (fused_kernel=True) on 8 pairs at 480x640, counted the same
    way (one correlation-softmax launch, nothing else), timed, beside the
    same weights with fused_kernel=False, plus one 1056x1920 pair and a
@@ -201,37 +203,127 @@ def check_local_corr(dev, gen, cfg):
     return rows
 
 
-def check_dw_chain(dev, gen, cfg, model):
+def chain_params(model):
+    """The scale-1 refiner's 9 blocks, folded as the refiner hands them to
+    the chain: ws, scales, shifts, ms, biases stacked over blocks."""
     import torch
 
+    cols = [blk.fused(torch.bfloat16) for blk in model.decoder.conv_refiner["1"].blocks()]
+    return [torch.stack([c[i] for c in cols]).contiguous() for i in range(5)]
+
+
+# K2's ragged shapes (B, C, H, W): H and W off the 16 x 32 (C <= 32) or 8 x 32
+# tile, 1 x W and H x 1 planes, W % 8 != 0 (element-wise loads and stores),
+# every padded width Cp = 16, 32, 48, 64
+DW_CHAIN_RAGGED = tuple((1, C, H, W) for C in (8, 24, 40, 63)
+                        for H, W in ((37, 53), (1, 70), (70, 1))) + (
+    (2, 24, 45, 64), (1, 16, 21, 40), (1, 32, 19, 96), (1, 64, 13, 72), (3, 5, 17, 33))
+DW_CHAIN_RAGGED_CHAIN = (1, 40, 37, 53)
+
+
+def check_dw_chain(dev, gen, cfg, params):
+    """K2. One block (N = 1) against block_plain_nchw elementwise at one bf16
+    ulp, |kernel - plain| <= 2^-7 |plain| + 1e-5: y is rounded at the same
+    point after the same FMA order, and only the mix's float32 sum order
+    (tensor cores against cuBLAS) differs before z's one rounding. At both
+    main-path shapes with the refiner's first block, and at DW_CHAIN_RAGGED
+    with random weights. The 9-block chain at 3e-2 x max(1, max|plain|)
+    (one bf16 ulp at the output's largest magnitude, compounded over the
+    chain) at the main-path shapes and at one ragged shape. Every case is
+    checked before a failure is raised, and a failure names each case with
+    its worst error over its tolerance. Times: the chain call (9 launches and
+    the weight packing) as the median of 5 replays of a CUDA graph of 5
+    calls, the plain chain, and the nearest library composite, K4 + cuDNN's
+    bf16 1x1 conv with bias chained nine times (a comparison, not one call:
+    library_ms stays null)."""
+    import torch
+    import torch.nn.functional as F
+
+    from roma_torch.kernels import dw_affine_relu as k4
     from roma_torch.kernels import dw_chain
 
-    refiner = model.decoder.conv_refiner["1"]
-    dt = torch.bfloat16
-    cols = [blk.fused(dt) for blk in refiner.blocks()]
-    params = [torch.stack([c[i] for c in cols]).contiguous() for i in range(5)]
+    failures = []
+
+    def compare(got, ref, what, chain):
+        torch.cuda.synchronize()
+        g, r = got.float(), ref.float()
+        d = (g - r).abs()
+        err = d.max().item()
+        if chain:
+            tol = 3e-2 * max(1.0, r.abs().max().item())
+            worst = err / tol
+        else:
+            tol = "2^-7 |plain| + 1e-5"
+            worst = (d / (2.0 ** -7 * r.abs() + 1e-5)).max().item()
+        if not math.isfinite(err) or worst > 1.0:
+            failures.append(f"{what}: max_abs_err {err:.3e}, worst err/tol {worst:.3g}")
+        return dict(max_abs_err=err, worst_err_over_tol=worst, tol=tol,
+                    differing_share=(g != r).float().mean().item())
+
+    def random_params(N, C):
+        ws = (0.2 * torch.randn((N, 5, 5, C), generator=gen, device=dev)).to(torch.bfloat16)
+        scales = 0.5 + torch.rand((N, C), generator=gen, device=dev)
+        shifts = 0.1 * torch.randn((N, C), generator=gen, device=dev)
+        ms = (0.2 * torch.randn((N, C, C), generator=gen, device=dev)).to(torch.bfloat16)
+        biases = 0.1 * torch.randn((N, C), generator=gen, device=dev)
+        return [ws, scales, shifts, ms, biases]
+
+    def block_case(x, p, what):
+        one = [t[:1] for t in p]
+        return compare(dw_chain.chain_nchw(x, *one),
+                       dw_chain.block_plain_nchw(x, *(t[0] for t in one)), what, False)
+
+    ragged = []
+    for B, C, H, W in DW_CHAIN_RAGGED:
+        x = torch.randn((B, C, H, W), generator=gen, device=dev).to(torch.bfloat16)
+        res = block_case(x, random_params(1, C), f"one block ragged {(B, C, H, W)}")
+        ragged.append(dict(dims=[B, C, H, W], blocks=1, **res))
+    B, C, H, W = DW_CHAIN_RAGGED_CHAIN
+    x = torch.randn((B, C, H, W), generator=gen, device=dev).to(torch.bfloat16)
+    p = random_params(9, C)
+    res = compare(dw_chain.chain_nchw(x, *p), dw_chain.chain_plain_nchw(x, *p),
+                  f"chain ragged {(B, C, H, W)}", True)
+    ragged.append(dict(dims=[B, C, H, W], blocks=9, **res))
+
     N, C = params[0].shape[0], params[0].shape[-1]
     B = 2 * PAIRS
-    rows = []
+    cases = []
     for label, h in (("coarse s1", cfg.coarse_resolution[0]),
                      ("upsample s1", cfg.upsample_resolution[0])):
-        x = torch.randn((B, C, h, h), generator=gen, device=dev).to(dt)
-        got = dw_chain.chain_nchw(x, *params)
-        ref = dw_chain.chain_plain_nchw(x, *params)
-        torch.cuda.synchronize()
-        scale = max(1.0, ref.float().abs().max().item())
-        err = (got.float() - ref.float()).abs().max().item()
-        tol = 3e-2 * scale
-        fail_if(not math.isfinite(err) or err > tol, f"dw_chain {label}: max_abs_err {err} > {tol}")
+        x = torch.randn((B, C, h, h), generator=gen, device=dev).to(torch.bfloat16)
+        one = block_case(x, params, f"one block {label}")
+        chain = compare(dw_chain.chain_nchw(x, *params), dw_chain.chain_plain_nchw(x, *params),
+                        f"chain {label}", True)
+        cases.append((label, h, x, one, chain))
+    fail_if(bool(failures), "dw_chain: " + "; ".join(failures))
+
+    ws, scales, shifts, ms, biases = params
+    m4 = [m.T[:, :, None, None].contiguous() for m in ms]
+    b4 = biases.to(torch.bfloat16)
+
+    def k4_cudnn(x):
+        for j in range(N):
+            x = F.conv2d(k4.dw5x5_affine_relu_nchw(x, ws[j], scales[j], shifts[j]), m4[j], b4[j])
+        return x
+
+    rows = []
+    for label, h, x, one, chain in cases:
         n_pix = B * h * h
+        weights = N * (25 * C * 2 + C * C * 2 + 3 * C * 4)
         flops = N * n_pix * (25 * C * 2 + C * C * 2 + 4 * C)
-        nbytes = 2 * n_pix * C * 2 + N * (25 * C * 2 + C * C * 2 + 3 * C * 4)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(2 * n_pix * C * 2 + weights, flops)
+        ms_rounds = graph_ms_rounds(lambda: dw_chain.chain_nchw(x, *params), 5)
+        lib_rounds = graph_ms_rounds(lambda: k4_cudnn(x), 5)
         rows.append(dict(shape=label, dims=[B, C, h, h], blocks=N, calls=1,
-                         max_abs_err=err, tol=tol,
-                         ms=cuda_ms(lambda: dw_chain.chain_nchw(x, *params), 10),
+                         max_abs_err=max(one["max_abs_err"], chain["max_abs_err"]),
+                         tol=chain["tol"], one_block=one, chain=chain,
+                         ms=median(ms_rounds), ms_rounds=ms_rounds,
+                         ms_per_launch=median(ms_rounds) / N,
                          plain_ms=cuda_ms(lambda: dw_chain.chain_plain_nchw(x, *params), 3, 1),
-                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                         k4_cudnn_1x1_ms=median(lib_rounds), k4_cudnn_1x1_ms_rounds=lib_rounds,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         launch_floor_ms=N * 2 * n_pix * C * 2 / PEAK_BYTES * 1e3))
+    rows[0]["ragged"] = ragged
     return rows
 
 
@@ -670,7 +762,8 @@ def check_small_reference(seed: int, dev):
     through the kernels against the same weights on the CPU through the
     plain versions, both bf16. Differences come from bf16 rounding in other
     places (cuDNN vs CPU convolutions), so the check is on robust summaries:
-    median |warp difference| < 0.02 and mean |certainty difference| < 0.05."""
+    median |warp difference| < 0.02 and mean |certainty difference| < 0.05.
+    Beside it, `per_scale_diffs` says at which scale the differences arise."""
     import torch
 
     from roma_torch.models.zoo import debug_roma_config, roma_outdoor
@@ -686,10 +779,52 @@ def check_small_reference(seed: int, dev):
     dw = (wg.cpu() - wc).abs()
     dc = (cg.cpu() - cc).abs()
     res = dict(median_warp_diff=dw.median().item(), max_warp_diff=dw.max().item(),
-               mean_cert_diff=dc.mean().item(), max_cert_diff=dc.max().item())
+               mean_cert_diff=dc.mean().item(), max_cert_diff=dc.max().item(),
+               per_scale=per_scale_diffs(gpu, cpu, a, b, dev))
     fail_if(res["median_warp_diff"] >= 0.02 or res["mean_cert_diff"] >= 0.05,
             f"GPU vs CPU debug model disagree: {res}")
     return res
+
+
+def per_scale_diffs(gpu, cpu, a, b, dev) -> dict:
+    """The debug model's coarse and upsample passes on the card and on the
+    CPU from the same normalized inputs (CPU resizes), per scale: max and
+    99.9th percentile |dflow| (normalized coordinates) and mean |dcert|
+    (certainty logits). The card's upsample pass runs twice: from its own
+    coarse flow, as match() does, and from the CPU's coarse flow, which
+    leaves only the upsample pass's own differences."""
+    import torch
+
+    cfg = cpu.cfg
+    (hc, wc), (hu, wu) = cfg.coarse_resolution, cfg.upsample_resolution
+    sf = math.sqrt((hu * wu) / (hc * wc))
+    with torch.inference_mode():
+        ac, bc = cpu._preprocess(a, b, hs=hc, ws=wc)
+        au, bu = cpu._preprocess(a, b, hs=hu, ws=wu)
+        coarse_cpu = cpu.model(ac, bc, symmetric=cfg.symmetric)
+        coarse_gpu = gpu.model(ac.to(dev), bc.to(dev), symmetric=cfg.symmetric)
+
+        def upsample(matcher, coarse, d):
+            return matcher.model(au.to(d), bu.to(d), symmetric=cfg.symmetric, upsample=True,
+                                 flow=coarse[1]["flow"].to(d),
+                                 certainty=coarse[1]["certainty"].to(d), scale_factor=sf)
+
+        up_cpu = upsample(cpu, coarse_cpu, "cpu")
+        up_gpu = upsample(gpu, coarse_gpu, dev)
+        up_fed = upsample(gpu, coarse_cpu, dev)
+
+    def stats(got, ref):
+        out = {}
+        for s in ref:
+            df = (got[s]["flow"].float().cpu() - ref[s]["flow"].float()).abs().flatten()
+            dc = (got[s]["certainty"].float().cpu() - ref[s]["certainty"].float()).abs()
+            out[f"s{s}"] = dict(max_flow=df.max().item(),
+                                q999_flow=torch.quantile(df, 0.999).item(),
+                                mean_cert=dc.mean().item())
+        return out
+
+    return {"coarse": stats(coarse_gpu, coarse_cpu), "upsample": stats(up_gpu, up_cpu),
+            "upsample_from_cpu_coarse": stats(up_fed, up_cpu)}
 
 
 def print_rows(card: str, rows: dict, name: str) -> None:
@@ -701,6 +836,26 @@ def print_rows(card: str, rows: dict, name: str) -> None:
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.1%} of the bound"
               + (f"; rounds {[round(t, 4) for t in r['ms_rounds']]} ms" if "ms_rounds" in r else ""),
+              flush=True)
+
+
+def print_dw_chain(card: str, rows: list[dict]) -> None:
+    """K2's per-shape detail: one block and chain against plain (error,
+    worst error over tolerance, share of elements differing), per-launch
+    time, the 9-launch floor and K4 + cuDNN 1x1; then the ragged cases."""
+    for r in rows:
+        one, chain = r["one_block"], r["chain"]
+        print(f"[{card}] dw_chain {r['shape']}: one block err {one['max_abs_err']:.3e} "
+              f"(worst {one['worst_err_over_tol']:.3f} of 2^-7|plain| + 1e-5, differing "
+              f"{one['differing_share']:.2e}); chain err {chain['max_abs_err']:.3e} (worst "
+              f"{chain['worst_err_over_tol']:.3f} of its tol, differing "
+              f"{chain['differing_share']:.2e}); {r['ms_per_launch']:.4f} ms a launch, "
+              f"9-launch floor {r['launch_floor_ms']:.4f} ms, K4 + cuDNN 1x1 x9 "
+              f"{r['k4_cudnn_1x1_ms']:.4f} ms; rounds {[round(t, 4) for t in r['ms_rounds']]}",
+              flush=True)
+    for g in rows[0]["ragged"]:
+        print(f"[{card}] dw_chain ragged {g['dims']} x{g['blocks']}: err {g['max_abs_err']:.3e} "
+              f"(worst {g['worst_err_over_tol']:.3f} of tol), differing {g['differing_share']:.2e}",
               flush=True)
 
 
@@ -946,7 +1101,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {
         "local_corr": check_local_corr(dev, gen, cfg),
-        "dw_chain": check_dw_chain(dev, gen, cfg, matcher.model),
+        "dw_chain": check_dw_chain(dev, gen, cfg, chain_params(matcher.model)),
         "flash_attn": check_flash_attn(dev, gen, cfg),
         "dw_affine_relu": check_dw_affine_relu(dev, gen, cfg),
         "dw_block_mm": check_dw_block_mm(dev, gen),
@@ -961,6 +1116,7 @@ def main() -> int:
     print(f"[{card}] dw_block_mm: K4 + cuDNN 1x1 ms "
           f"{[r['k4_cudnn_1x1_ms'] for r in rows['dw_block_mm']]}; ragged max_abs_err "
           f"{rows['dw_block_mm'][0]['ragged_max_abs_err']}", flush=True)
+    print_dw_chain(card, rows["dw_chain"])
 
     expected = expected_launches(cfg)
     out_dir = args.out
@@ -986,7 +1142,14 @@ def main() -> int:
     del matcher
     torch.cuda.empty_cache()
     report["small_reference"] = check_small_reference(SEED, dev)
-    print(f"[{card}] debug model GPU vs CPU: {report['small_reference']}", flush=True)
+    ref = report["small_reference"]
+    print(f"[{card}] debug model GPU vs CPU: " + json.dumps(
+        {k: v for k, v in ref.items() if k != "per_scale"}), flush=True)
+    for pass_, scales in ref["per_scale"].items():
+        print(f"[{card}] debug model GPU vs CPU, {pass_} pass per scale (|dflow| max / 99.9% / "
+              "mean |dcert|): " + "; ".join(
+                  f"{s} {v['max_flow']:.3e} / {v['q999_flow']:.3e} / {v['mean_cert']:.3e}"
+                  for s, v in scales.items()), flush=True)
 
     rows["corr_softmax"] = check_corr_softmax(dev, gen)
     print_rows(card, rows, "corr_softmax")

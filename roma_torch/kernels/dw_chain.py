@@ -5,14 +5,19 @@ Replaces the TPU kernel ``roma_tpu/ops/pallas/depthwise.py::dw5x5_mm_chain``.
 One block is ``bf16(relu(dw5x5(x) * scale + shift))`` followed by a C x C 1x1
 conv plus bias, rounded to bf16; the chain runs N blocks (the scale-1
 refiner's block_in + 8 hidden blocks). The kernel launches once per block
-and ping-pongs two NCHW buffers. Bound and design: see the note at the top
-of the CUDA source (bytes; one thread per pixel, halo tile and weights in
-shared memory, the depthwise sums and the 1x1 mix kept in registers).
+and ping-pongs two NCHW buffers; it takes 1 <= C <= 64. Bound and design:
+see the note at the top of the CUDA source (bytes; persistent blocks walk
+TH x 32 pixel tiles, prefetching the next tile's halo by TMA, 4 x 4
+depthwise patches per thread, the C x C mix on the tensor cores).
+`tile_plan` mirrors the kernel's tile geometry and shared memory;
+`pack_params` lays the weights out as the kernel reads them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -20,7 +25,67 @@ from roma_torch.kernels import runtime
 from roma_torch.kernels.dw_affine_relu import dw5x5_affine_relu_plain_nchw
 
 NAME = "dw_chain"
-CHANNELS = (8, 16, 24, 32)
+MAX_CHANNELS = 64
+TILE_W = 32          # output columns of a tile
+STAGE_W = TILE_W + 16  # staged halo row in bf16: 16-byte vectors from column x0 - 8
+TAPS = 28            # fp32 per channel: 25 taps (dy, dx order), scale, shift, 0
+
+
+def padded_channels(C: int) -> int:
+    """Cp: C rounded up to a multiple of 16, the mix's k and n extent."""
+    return -(-C // 16) * 16
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """The kernel's tiling of a (B, C, H, W) block: tiles of `rows` x TILE_W
+    output pixels, `tiles` = (across W, down H, B) of them, walked by
+    persistent blocks; the halo keeps `rows` + 4 staged bf16 rows of
+    STAGE_W and float rows of TILE_W + 4 per channel, float planes
+    `plane_stride` floats apart; `smem_bytes` of shared memory a block."""
+
+    cp: int
+    rows: int
+    tiles: tuple[int, int, int]
+    plane_stride: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(B: int, C: int, H: int, W: int) -> TilePlan:
+    """8-row tiles for C <= 32 (two blocks share an SM at C = 24), 4-row
+    tiles above. Raises for C outside 1..64. The shared memory, in the
+    kernel's order: 128 bytes of slack to align the staged bf16 rows for
+    TMA, the staged rows, float rows (the z tile goes over them), the y
+    tile, M^T, bias, taps, and 16 bytes for the mbarrier."""
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"{NAME}: needs 1 <= C <= {MAX_CHANNELS}, got {C}")
+    cp = padded_channels(C)
+    rows = 8 if cp <= 32 else 4
+    n = -(-(rows + 4) * (TILE_W + 4) // 4)  # 16-byte units of a float plane
+    plane_stride = 4 * (n if n % 2 else n + 1)  # an odd count: 8 planes in 8 bank groups
+    smem = (128 + 2 * C * (rows + 4) * STAGE_W + 4 * C * plane_stride
+            + 2 * rows * TILE_W * (cp + 8) + 2 * cp * (cp + 8) + 4 * cp + 4 * C * TAPS + 16)
+    tiles = (-(-W // TILE_W), -(-H // rows), B)
+    return TilePlan(cp, rows, tiles, plane_stride, smem)
+
+
+def pack_params(ws, scales, shifts, ms, biases):
+    """The chain's weights as the kernel reads them: taps (N, C, 28) fp32
+    (25 taps in dy, dx order, scale, shift, 0), mt (N, Cp, Cp) bf16 with
+    mt[j, d, c] = ms[j, c, d] and zeros past C, bias (N, Cp) fp32 with
+    zeros past C."""
+    N, C = ws.shape[0], ws.shape[-1]
+    cp = padded_channels(C)
+    taps = torch.zeros((N, C, TAPS), dtype=torch.float32, device=ws.device)
+    taps[:, :, :25] = ws.reshape(N, 25, C).transpose(1, 2).float()
+    taps[:, :, 25] = scales
+    taps[:, :, 26] = shifts
+    mt = torch.zeros((N, cp, cp), dtype=torch.bfloat16, device=ws.device)
+    mt[:, :C, :C] = ms.transpose(1, 2)
+    bias = torch.zeros((N, cp), dtype=torch.float32, device=ws.device)
+    bias[:, :C] = biases
+    return taps, mt, bias
 
 
 def block_plain_nchw(x, w, scale, shift, m, bias):
@@ -47,29 +112,34 @@ def chain_nchw(x, ws, scales, shifts, ms, biases):
     return chain_cuda_nchw(x, ws, scales, shifts, ms, biases)
 
 
+@functools.cache
+def _kernel():
+    lib = runtime.load(NAME)
+    fn = lib.roma_dw_block
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def chain_cuda_nchw(x, ws, scales, shifts, ms, biases):
     B, C, H, W = x.shape
     N = ws.shape[0]
-    if C not in CHANNELS:
-        raise ValueError(f"{NAME}: C must be one of {CHANNELS}, got {C}")
+    plan = tile_plan(B, C, H, W)  # raises for C outside 1..64
     dev = x.device
     runtime.require(NAME, x, (B, C, H, W), torch.bfloat16, dev)
     runtime.require(NAME, ws, (N, 5, 5, C), torch.bfloat16, dev)
     runtime.require(NAME, ms, (N, C, C), torch.bfloat16, dev)
     for t in (scales, shifts, biases):
         runtime.require(NAME, t, (N, C), torch.float32, dev)
-    lib = runtime.load(NAME)
-    fn = lib.roma_dw_block
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    taps, mt, bias = pack_params(ws, scales, shifts, ms, biases)
+    lib, fn = _kernel()
     stream = runtime.stream_handle(x)
     bufs = [torch.empty_like(x), torch.empty_like(x)]
     src = x
     for j in range(N):
         dst = bufs[j % 2]
-        rc = fn(src.data_ptr(), dst.data_ptr(), ws[j].data_ptr(), scales[j].data_ptr(),
-                shifts[j].data_ptr(), ms[j].data_ptr(), biases[j].data_ptr(),
-                B, C, H, W, stream)
+        rc = fn(src.data_ptr(), dst.data_ptr(), taps[j].data_ptr(), mt[j].data_ptr(),
+                bias[j].data_ptr(), B, C, H, W, plan.smem_bytes, stream)
         runtime.check(lib, NAME, rc)
         src = dst
     return src

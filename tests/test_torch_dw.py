@@ -237,3 +237,126 @@ def test_dw_band_emulation_equals_plain(rng, H, W):
     ref = k4.dw5x5_affine_relu_plain_nchw(x, w, sc, sh)
     assert got.shape == ref.shape
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6, rtol=0)
+
+
+# K2's weight packing, tile plan and tiling (the CUDA kernel's host-side
+# pieces), at every padded width Cp = 16, 32, 48, 64
+@pytest.mark.parametrize("C", [1, 8, 16, 24, 40, 63, 64])
+def test_dw_chain_pack_params_unpacks_to_the_weights(rng, C):
+    """taps (N, C, 28) fp32: 25 taps in dy, dx order, scale, shift, 0;
+    mt (N, Cp, Cp) bf16 = M^T with zeros past C; bias (N, Cp) with zeros past
+    C. Unpacked, each equals the unpadded weight exactly."""
+    N = 2
+    ws = _bf(rng.standard_normal((N, 5, 5, C)) * 0.2)
+    scales = torch.from_numpy(rng.uniform(0.5, 1.5, (N, C)).astype(np.float32))
+    shifts = torch.from_numpy((rng.standard_normal((N, C)) * 0.1).astype(np.float32))
+    ms = _bf(rng.standard_normal((N, C, C)) * 0.2)
+    biases = torch.from_numpy((rng.standard_normal((N, C)) * 0.1).astype(np.float32))
+    taps, mt, bias = dw_chain.pack_params(ws, scales, shifts, ms, biases)
+    cp = dw_chain.padded_channels(C)
+    assert cp % 16 == 0 and C <= cp < C + 16
+    assert taps.shape == (N, C, dw_chain.TAPS) and taps.dtype == torch.float32
+    assert mt.shape == (N, cp, cp) and mt.dtype == torch.bfloat16
+    assert bias.shape == (N, cp) and bias.dtype == torch.float32
+    assert torch.equal(taps[:, :, :25].reshape(N, C, 5, 5).permute(0, 2, 3, 1), ws.float())
+    assert torch.equal(taps[:, :, 25], scales) and torch.equal(taps[:, :, 26], shifts)
+    assert not taps[:, :, 27].any()
+    assert torch.equal(mt[:, :C, :C].transpose(1, 2), ms)
+    assert not mt[:, C:].any() and not mt[:, :, C:].any()
+    assert torch.equal(bias[:, :C], biases) and not bias[:, C:].any()
+
+
+# (B, C, H, W): the main path's two shapes, then ragged ones
+TILE_SHAPES = [(4, 24, 560, 560), (4, 24, 864, 864), (1, 8, 37, 53), (1, 24, 1, 70),
+               (1, 40, 70, 1), (1, 63, 37, 53), (1, 64, 13, 72), (3, 5, 17, 33)]
+
+
+@pytest.mark.parametrize("B,C,H,W", TILE_SHAPES)
+def test_dw_chain_tile_plan_covers_each_pixel_once(B, C, H, W):
+    """The tiles cover every output pixel of every image exactly once; the
+    float channel planes hold a tile's halo and start in 8 distinct bank
+    groups; a block fits the H100's 227 KB of shared memory."""
+    plan = dw_chain.tile_plan(B, C, H, W)
+    nx, ny, nb = plan.tiles
+    assert nb == B and plan.rows in (4, 8) and plan.cp == dw_chain.padded_channels(C)
+    assert (nx - 1) * dw_chain.TILE_W < W <= nx * dw_chain.TILE_W
+    assert (ny - 1) * plan.rows < H <= ny * plan.rows
+    cover = np.zeros((H, W), np.int64)
+    for ty in range(ny):
+        for tx in range(nx):
+            cover[ty * plan.rows:(ty + 1) * plan.rows,
+                  tx * dw_chain.TILE_W:(tx + 1) * dw_chain.TILE_W] += 1
+    assert (cover == 1).all()
+    assert plan.plane_stride >= (plan.rows + 4) * (dw_chain.TILE_W + 4)
+    assert plan.plane_stride % 4 == 0 and (plan.plane_stride // 4) % 2 == 1
+    assert plan.smem_bytes <= k4.SMEM_MAX
+
+
+def _emulate_chain_block(x, w, scale, shift, m, bias):
+    """One block the way the kernel cuts it, in plain PyTorch: per tile the
+    staged bf16 halo (rows y0 - 2 .. y0 + rows + 1, columns x0 - 8 ..
+    x0 + 39, zeros outside the plane), its float rows from column x0 - 2,
+    the depthwise sums from the packed taps, y rounded to bf16 and padded
+    with zero channels to Cp, the mix with the packed M^T and bias, and only
+    the tile's in-plane pixels written. Returns z and the count of writes
+    per pixel."""
+    B, C, H, W = x.shape
+    plan = dw_chain.tile_plan(B, C, H, W)
+    taps, mt, bp = (t[0] for t in dw_chain.pack_params(w[None], scale[None], shift[None],
+                                                       m[None], bias[None]))
+    R, TW, SW = plan.rows, dw_chain.TILE_W, dw_chain.STAGE_W
+    out = torch.zeros((B, C, H, W), dtype=torch.bfloat16)
+    count = torch.zeros((B, H, W), dtype=torch.int64)
+    nx, ny, nb = plan.tiles
+    for b in range(nb):
+        for ty in range(ny):
+            for tx in range(nx):
+                x0, y0 = tx * TW, ty * R
+                stage = torch.zeros((C, R + 4, SW))
+                ya, yb = max(y0 - 2, 0), min(y0 + R + 2, H)
+                xa, xb = max(x0 - 8, 0), min(x0 + SW - 8, W)
+                if yb > ya and xb > xa:
+                    stage[:, ya - y0 + 2:yb - y0 + 2, xa - x0 + 8:xb - x0 + 8] = \
+                        x[b, :, ya:yb, xa:xb].float()
+                rows = stage[:, :, 6:6 + TW + 4]
+                acc = torch.nn.functional.conv2d(rows[None], taps[:, :25].reshape(C, 1, 5, 5),
+                                                 groups=C)[0]
+                y = torch.relu(acc * taps[:, 25, None, None] + taps[:, 26, None, None])
+                yp = torch.zeros((plan.cp, R, TW))
+                yp[:C] = y.to(torch.bfloat16).float()
+                z = torch.einsum("dc,crw->drw", mt.float(), yp) + bp[:, None, None]
+                h1, w1 = min(R, H - y0), min(TW, W - x0)
+                out[b, :, y0:y0 + h1, x0:x0 + w1] = z[:C, :h1, :w1].to(torch.bfloat16)
+                count[b, y0:y0 + h1, x0:x0 + w1] += 1
+    return out, count
+
+
+@pytest.mark.parametrize("B,C,H,W", TILE_SHAPES[2:] + [(2, 24, 21, 64), (1, 16, 9, 40)])
+def test_dw_chain_tile_emulation_matches_plain(rng, B, C, H, W):
+    """The kernel's tiling (tile plan, staged halo offsets, zero fill, Cp
+    padding, packed weights) emulated per tile equals `block_plain_nchw`
+    within one bf16 ulp elementwise (the tile's conv and the padded mix sum
+    in another order), and writes every pixel once."""
+    x = _bf(rng.standard_normal((B, C, H, W)))
+    w = _bf(rng.standard_normal((5, 5, C)) * 0.2)
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    sh = torch.from_numpy((rng.standard_normal(C) * 0.1).astype(np.float32))
+    m = _bf(rng.standard_normal((C, C)) * 0.2)
+    bias = torch.from_numpy((rng.standard_normal(C) * 0.1).astype(np.float32))
+    got, count = _emulate_chain_block(x, w, sc, sh, m, bias)
+    assert (count == 1).all()
+    _one_ulp(got.float().numpy(), block_plain_nchw(x, w, sc, sh, m, bias).float().numpy())
+
+
+@pytest.mark.parametrize("C", [65, 96])
+def test_dw_chain_kernel_rejects_more_than_64_channels(C):
+    """A request the kernel does not take raises before anything is built
+    or launched (here on the CPU, through the wrapper's argument check)."""
+    x = torch.zeros((1, C, 4, 4), dtype=torch.bfloat16)
+    ws = torch.zeros((9, 5, 5, C), dtype=torch.bfloat16)
+    ms = torch.zeros((9, C, C), dtype=torch.bfloat16)
+    vec = torch.zeros((9, C))
+    n0 = LAUNCHES["dw_chain"]
+    with pytest.raises(ValueError, match="1 <= C <= 64"):
+        dw_chain.chain_cuda_nchw(x, ws, vec, vec, ms, vec)
+    assert LAUNCHES["dw_chain"] == n0
