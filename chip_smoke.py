@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the roma_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--out DIR]
+    python3 chip_smoke.py [--profile] [--out DIR] [--parent CHECKOUT]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the seven CUDA kernels from roma_torch/csrc (one nvcc each, in
@@ -19,10 +19,15 @@
    version and, where one exists, the single PyTorch call computing the same
    function (SDPA for attention and the correlation softmax, F.grid_sample
    for the windowed gather, cuDNN's depthwise conv for the wide depthwise
-   block). The whole-block kernel (dw_block_mm) is on no model path, as in
-   the JAX package: it is checked and timed here at the scale-2 and
-   scale-1 shapes beside "wide depthwise kernel + cuDNN 1x1", and its
-   launches in the kernels line are 0;
+   block). Local correlation runs on the inputs the main path hands it
+   (captured from one default match()) and on a scattered and a smooth
+   synthetic flow, with the path each 8 x 8 tile took held against
+   `tile_plan` (and, with --parent, the kernel of another checkout timed
+   beside it on the same inputs); the correlation softmax through both its
+   entries, bf16 and float32. The whole-block kernel (dw_block_mm) is on
+   no model path, as in the JAX package: it is checked and timed here at
+   the scale-2 and scale-1 shapes beside "wide depthwise kernel + cuDNN
+   1x1", and its launches in the kernels line are 0;
 5. default full RoMa: RomaMatcher.match on 2 pairs, once to warm up, once
    with the launch counters reset just before it and read just after it
    (each kernel must show exactly its expected launches), and 3 more times
@@ -33,7 +38,8 @@
    on the device: counted (the same launches as match()), timed, held
    against match_prepped on host PIL resizes, then sample_batched; then the
    debug-size model on the GPU against the same weights on the CPU, with
-   its flow differences per scale of both passes;
+   its flow differences per scale of both passes and the match decoder's
+   top-2 class-logit margins where the scale-16 flows differ;
 7. Tiny RoMa v1 (fused_kernel=True) on 8 pairs at 480x640, counted the same
    way (one correlation-softmax launch, nothing else), timed, beside the
    same weights with fused_kernel=False, plus one 1056x1920 pair and a
@@ -59,6 +65,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+PEAK_EXPS = 3.9e12         # H100 SXM5 exponentials a second (special-function units;
+                           # the FlashAttention-3 paper's figure)
 PAIRS = 2                  # pairs per match(); symmetric -> 4 images per pass
 TINY_PAIRS = 8             # pairs per Tiny RoMa match()
 TINY_HW = (480, 640)       # RESOLUTION_PRESETS["tiny_bench"]
@@ -151,55 +159,191 @@ def median(xs: list[float]) -> float:
     return xs[len(xs) // 2]
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    tb, tf = bytes_moved / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+def bound(bytes_moved: float, flops: float, exps: float = 0.0) -> tuple[float, str]:
+    """Least ms for the work: the bytes over the memory rate, or the
+    operations (tensor-core products, or exponentials on the
+    special-function units, whichever takes longer) over their peak."""
+    tb = bytes_moved / PEAK_BYTES * 1e3
+    to = max(flops / PEAK_BF16_FLOPS * 1e3, exps / PEAK_EXPS * 1e3)
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 # ---------------------------------------------------------------- kernel checks
 
-def check_local_corr(dev, gen, cfg):
-    """Refiners 16/8/4 in both passes: (name, B', h, w, C, r, calls per match)."""
+def capture_local_corr(matcher, gen, dev) -> list:
+    """(f0, f1, r, flow) of each local-correlation call of one default
+    match() on 2 pairs of random images, in call order: the refiner calls
+    the kernel through the module attribute, which is wrapped for this one
+    match() and restored."""
+    import torch
+
+    from roma_torch.kernels import local_corr as lc
+
+    calls, kernel = [], lc.local_correlation
+
+    def record(f0, f1, r, flow):
+        calls.append((f0.clone(), f1.clone(), r, flow.clone()))
+        return kernel(f0, f1, r, flow)
+
+    h, w = matcher.cfg.coarse_resolution
+    ims = [torch.rand((PAIRS, h, w, 3), generator=gen, device=dev) for _ in range(2)]
+    lc.local_correlation = record
+    try:
+        timed_match(matcher, *ims)
+    finally:
+        lc.local_correlation = kernel
+    return calls
+
+
+def parent_local_corr(parent: Path):
+    """The local-correlation kernel of another checkout (its
+    roma_torch/csrc/local_corr.cu, built with this checkout's flags) as a
+    function of (f0, f1, r, flow), to time beside this one on the same
+    inputs. Its C entry has the one-warp-per-pixel kernel's signature."""
+    import ctypes
+
+    import torch
+
+    from roma_torch.kernels import runtime
+
+    runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_file = runtime.BUILD_DIR / "parent_local_corr.so"
+    subprocess.run([runtime.nvcc(), *runtime.NVCC_FLAGS, "-o", str(lib_file),
+                    str(parent / "roma_torch" / "csrc" / "local_corr.cu")],
+                   check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(str(lib_file)).roma_local_corr
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(f0, f1, r, flow):
+        B, H, W, C = f0.shape
+        out = torch.empty((B, H, W, (2 * r + 1) ** 2), dtype=torch.float32, device=f0.device)
+        scale = (1.0 / torch.sqrt(torch.tensor(float(C)))).item()
+        rc = fn(f0.data_ptr(), f1.data_ptr(), flow.data_ptr(), out.data_ptr(), B, H, W, C, r,
+                scale, runtime.stream_handle(f0))
+        fail_if(rc != 0, f"parent local_corr: launch failed ({rc})")
+        return out
+
+    return run
+
+
+def check_local_corr(dev, gen, cfg, captured, parent=None):
+    """K1 at refiners 16/8/4 of both passes (B' = 4 images), on three inputs
+    each: the (f0, f1, flow) the main path hands it (`captured`, from one
+    default match()), random features on a scattered flow (identity + 0.3
+    N(0, 1) in normalized units, the worst case for reuse) and on a
+    smooth flow (`smooth_sine_grid`), each synthetic flow with one pixel far
+    out of range, whose output must be exactly zero. Tolerance 1e-3
+    absolute (fp32 sums in another order). The kernel reports the path of
+    each 8 x 8 tile, which must equal `tile_plan`'s; both paths must take
+    tiles over all inputs. Per input: mean in-range corners a pixel, the
+    window-row bytes (in-range corners x C x 2) and their read rate, the
+    tile window union's median and 90th percentile, reuse (corner reads
+    over union pixels), the kernel's time, the bound (bytes of f0, f1, the
+    flow and the output) and, with `parent`, the parent kernel's time on
+    the same inputs. The headline row is the captured input's, its plain
+    time too. Then C = 640 and 1024 on both paths (`ragged`)."""
     import torch
 
     from roma_torch.kernels import local_corr as lc
     from roma_torch.ops.corr import coord_grid
-    from roma_torch.ops.local_corr import corner_coords
 
     hc, hu = cfg.coarse_resolution[0], cfg.upsample_resolution[0]
     shapes = [("coarse s16", hc // 14, 512, 7), ("coarse s8", hc // 8, 512, 3),
               ("coarse s4", hc // 4, 256, 2), ("upsample s8", hu // 8, 512, 3),
               ("upsample s4", hu // 4, 256, 2)]
+    got_shapes = [(f0.shape[1], f0.shape[3], r) for f0, _, r, _ in captured]
+    fail_if(got_shapes != [(h, C, r) for _, h, C, r in shapes],
+            f"local_corr: the main path's calls {got_shapes} are not the expected shapes")
     B = 2 * PAIRS
-    rows = []
-    for label, h, C, r in shapes:
+    rows, tiles_on = [], {"shared": 0, "pixel": 0}
+    for (label, h, C, r), (cf0, cf1, _, cflow) in zip(shapes, captured):
         f0 = torch.randn((B, h, h, C), generator=gen, device=dev).to(torch.bfloat16)
         f1 = torch.randn((B, h, h, C), generator=gen, device=dev).to(torch.bfloat16)
-        flow = (coord_grid(h, h, device=dev).expand(B, h, h, 2)
-                + 0.3 * torch.randn((B, h, h, 2), generator=gen, device=dev)).contiguous()
-        flow[0, 0, 0] = torch.tensor([40.0, -40.0], device=dev)  # far out of range
-        got = lc.local_correlation(f0, f1, r, flow)
-        ref = lc.local_correlation_plain(f0, f1, r, flow)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        fail_if(not math.isfinite(err) or err > 1e-3, f"local_corr {label}: max_abs_err {err}")
-        fail_if(bool((got[0, 0, 0] != 0).any()), f"local_corr {label}: out-of-range pixel not zero")
-        # data-dependent work: only in-range corners are read and dotted
-        x0, y0, _, _ = corner_coords(flow, h, h, r)
-        d = torch.arange(2 * r + 2, device=dev) - r
-        nx = ((x0[..., None] + d >= 0) & (x0[..., None] + d < h)).sum(-1)
-        ny = ((y0[..., None] + d >= 0) & (y0[..., None] + d < h)).sum(-1)
-        corners = float((nx * ny).sum().item())
+        scattered = (coord_grid(h, h, device=dev).expand(B, h, h, 2)
+                     + 0.3 * torch.randn((B, h, h, 2), generator=gen, device=dev)).contiguous()
+        smooth = smooth_sine_grid(B, h, h, dev)
+        for fl in (scattered, smooth):
+            fl[0, 0, 0] = torch.tensor([40.0, -40.0], device=dev)  # far out of range
         k2 = (2 * r + 1) ** 2
         n_pix = B * h * h
-        flops = corners * 2 * C + n_pix * (C + 7 * k2)
         nbytes = 2 * n_pix * C * 2 + n_pix * 2 * 4 + n_pix * k2 * 4
-        b_ms, b_by = bound(nbytes, flops)
+        inputs = {}
+        for kind, (a, b, fl) in (("captured", (cf0, cf1, cflow)), ("scattered", (f0, f1, scattered)),
+                                 ("smooth", (f0, f1, smooth))):
+            paths = torch.empty(lc.tile_plan(fl, r).shared.shape, dtype=torch.int32, device=dev)
+            got = lc.local_correlation_cuda(a, b, r, fl, tile_paths=paths)
+            ref = lc.local_correlation_plain(a, b, r, fl)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            fail_if(not math.isfinite(err) or err > 1e-3,
+                    f"local_corr {label} {kind}: max_abs_err {err}")
+            fail_if(kind != "captured" and bool((got[0, 0, 0] != 0).any()),
+                    f"local_corr {label} {kind}: out-of-range pixel not zero")
+            plan = lc.tile_plan(fl, r)
+            fail_if(not torch.equal(paths.bool(), plan.shared),
+                    f"local_corr {label} {kind}: the kernel's paths differ from tile_plan's")
+            shared = int(plan.shared.sum().item())
+            tiles_on["shared"] += shared
+            tiles_on["pixel"] += plan.shared.numel() - shared
+            corners = float(plan.corners.sum().item())
+            unions = plan.union[plan.union > 0].float()
+            window_bytes = corners * C * 2
+            ms = cuda_ms(lambda: lc.local_correlation(a, b, r, fl), 20)
+            b_ms, b_by = bound(nbytes, corners * 2 * C + n_pix * (C + 7 * k2))
+            res = dict(max_abs_err=err, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                       shared_tiles=shared, tiles=plan.shared.numel(),
+                       corners_per_pixel=corners / n_pix, window_row_bytes=window_bytes,
+                       read_rate_tb_s=window_bytes / (ms * 1e-3) / 1e12,
+                       union_median=torch.quantile(unions, 0.5).item(),
+                       union_q90=torch.quantile(unions, 0.9).item(),
+                       reuse=corners / unions.sum().item())
+            if parent is not None:
+                res["parent_max_abs_err"] = (parent(a, b, r, fl) - ref).abs().max().item()
+                res["parent_ms"] = cuda_ms(lambda: parent(a, b, r, fl), 20)
+            inputs[kind] = res
+        head = inputs["captured"]
         rows.append(dict(shape=label, dims=[B, h, h, C], radius=r, calls=1,
-                         max_abs_err=err, tol=1e-3,
-                         ms=cuda_ms(lambda: lc.local_correlation(f0, f1, r, flow), 20),
-                         plain_ms=cuda_ms(lambda: lc.local_correlation_plain(f0, f1, r, flow), 3, 1),
-                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                         max_abs_err=max(v["max_abs_err"] for v in inputs.values()), tol=1e-3,
+                         ms=head["ms"],
+                         plain_ms=cuda_ms(lambda: lc.local_correlation_plain(cf0, cf1, r, cflow), 3, 1),
+                         library_ms=None, bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                         inputs=inputs))
+        del f0, f1, inputs
+    # widths past the main path's (C = 640 and 1024, which the wrapper
+    # accepts) on both paths, 2 x 45 x 53: r = 3 (per-pixel tiles only) on a
+    # scattered flow, r = 7 on a smooth flow (shared tiles)
+    ragged = []
+    for C, r, kind in ((640, 3, "scattered"), (1024, 3, "scattered"), (640, 7, "smooth"),
+                       (1024, 7, "smooth")):
+        Bg, hg, wg = 2, 45, 53
+        f0 = torch.randn((Bg, hg, wg, C), generator=gen, device=dev).to(torch.bfloat16)
+        f1 = torch.randn((Bg, hg, wg, C), generator=gen, device=dev).to(torch.bfloat16)
+        if kind == "scattered":
+            fl = (coord_grid(hg, wg, device=dev).expand(Bg, hg, wg, 2)
+                  + 0.3 * torch.randn((Bg, hg, wg, 2), generator=gen, device=dev)).contiguous()
+        else:
+            fl = smooth_sine_grid(Bg, hg, wg, dev)
+        plan = lc.tile_plan(fl, r)
+        paths = torch.empty(plan.shared.shape, dtype=torch.int32, device=dev)
+        got = lc.local_correlation_cuda(f0, f1, r, fl, tile_paths=paths)
+        err = (got - lc.local_correlation_plain(f0, f1, r, fl)).abs().max().item()
+        what = f"local_corr ragged C={C} r={r} {kind}"
+        fail_if(not math.isfinite(err) or err > 1e-3, f"{what}: max_abs_err {err}")
+        fail_if(not torch.equal(paths.bool(), plan.shared),
+                f"{what}: the kernel's paths differ from tile_plan's")
+        shared = int(plan.shared.sum().item())
+        fail_if(shared == (0 if r >= lc.SHARE_MIN_R else plan.shared.numel()),
+                f"{what}: no tile on the {'shared' if r >= lc.SHARE_MIN_R else 'per-pixel'} path")
+        tiles_on["shared"] += shared
+        tiles_on["pixel"] += plan.shared.numel() - shared
+        ragged.append(dict(dims=[Bg, hg, wg, C], radius=r, flow=kind, max_abs_err=err,
+                           shared_tiles=shared, tiles=plan.shared.numel()))
+    rows[0]["ragged"] = ragged
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], *(x["max_abs_err"] for x in ragged))
+    fail_if(min(tiles_on.values()) == 0,
+            f"local_corr: a path took no tile over all inputs ({tiles_on})")
+    rows[0]["tiles_on"] = tiles_on
     return rows
 
 
@@ -515,7 +659,7 @@ def check_flash_attn(dev, gen, cfg):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         flops = 4.0 * B * H * n * n * d
         nbytes = 4 * B * n * H * d * 2
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, float(B * H * n * n))
         ms_rounds = cuda_ms_rounds(lambda: at.attention(q, k, v), 20)
         lib_rounds = cuda_ms_rounds(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
         rows.append(dict(shape=label, dims=[B, n, H, d], calls=calls, ragged=ragged,
@@ -529,58 +673,86 @@ def check_flash_attn(dev, gen, cfg):
 
 
 def check_corr_softmax(dev, gen):
-    """Tiny RoMa's coarse warp: 8 pairs at 480x640 (L = 60 x 80) and one
-    pair at 1056x1920 (L = 132 x 240), fp32 features, the real coord_grid.
+    """Tiny RoMa's coarse warp through both entries of K7 on the same
+    bf16-valued features: bf16 (Tiny RoMa's, scored on the tensor cores)
+    and float32 (the JAX function's type; the parent's kernel, unchanged);
+    the float32 entry also on float32 randn features (which bf16 cannot
+    hold) at 8 x 480x640 and the ragged 2 x 1000 x 700 x 64.
+    8 pairs at 480x640 (L = 60 x 80) and one pair at 1056x1920 (L = 132 x
+    240), C = 64, the real coord_grid; for correctness only, ragged L0 and
+    L1 against the 128-row blocks and 64-column chunks at C = 16, 32 and 64.
     Tolerance 1e-4 absolute on normalized coordinates (fp32 sums in another
-    order; the plain volume at the megapixel shape is ~4 GB)."""
+    order; the plain volume at the megapixel shape is ~4 GB). Library
+    yardsticks: SDPA with the grid zero-padded to 64 value columns, in bf16
+    on the flash backend (library_ms) and in float32. The bound counts the
+    exponentials, one a score."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from roma_torch.kernels import corr_softmax as cs
     from roma_torch.ops.corr import coord_grid
 
-    # ragged L0 and L1 against the kernel's 128-row and 64-column tiles, and
-    # the narrower channel counts, checked for correctness only
+    def feats(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def errs(f0, f1, grid, what, full=False):
+        """Both entries on the bf16-valued f0, f1; with `full`, the fp32
+        entry also on float32 features that bf16 cannot hold (randn)."""
+        ref = cs.fused_pos_embed_plain(f0, f1, grid)
+        cases = [("bf16", f0, f1, ref), ("fp32", f0.float(), f1.float(), ref)]
+        if full:
+            t0 = torch.randn(f0.shape, generator=gen, device=dev)
+            t1 = torch.randn(f1.shape, generator=gen, device=dev)
+            cases.append(("fp32 randn", t0, t1, cs.fused_pos_embed_plain(t0, t1, grid)))
+        out = {}
+        for name, a, b, want in cases:
+            got = cs.fused_pos_embed(a, b, grid)
+            torch.cuda.synchronize()
+            out[name] = (got - want).abs().max().item()
+            fail_if(not math.isfinite(out[name]) or out[name] > 1e-4,
+                    f"corr_softmax {what} {name}: max_abs_err {out[name]}")
+        return out
+
     ragged = []
-    for B, L0, L1, C in ((2, 1000, 700, 64), (1, 129, 65, 32), (2, 60, 48, 16)):
-        f0 = torch.randn((B, L0, C), generator=gen, device=dev)
-        f1 = torch.randn((B, L1, C), generator=gen, device=dev)
+    for B, L0, L1, C in ((2, 1000, 700, 64), (1, 129, 65, 32), (2, 60, 48, 16), (3, 17, 130, 16),
+                         (1, 300, 1, 64), (2, 127, 191, 32)):
         grid = torch.rand((L1, 2), generator=gen, device=dev) * 2 - 1
-        err = (cs.fused_pos_embed(f0, f1, grid) - cs.fused_pos_embed_plain(f0, f1, grid))
-        ragged.append(err.abs().max().item())
-        fail_if(not math.isfinite(ragged[-1]) or ragged[-1] > 1e-4,
-                f"corr_softmax ragged {(B, L0, L1, C)}: max_abs_err {ragged[-1]}")
+        ragged.append(dict(dims=[B, L0, L1, C], **errs(feats(B, L0, C), feats(B, L1, C), grid,
+                                                       f"ragged {(B, L0, L1, C)}",
+                                                       full=(B, L0, L1) == (2, 1000, 700))))
     rows = []
     for label, B, (H, W), calls in (("tiny_bench 8 pairs", TINY_PAIRS, TINY_HW, 1),
                                     ("megapixel 1 pair", 1, MEGAPIXEL_HW, 0)):
         h, w = H // 8, W // 8
         L, C = h * w, 64
-        f0 = torch.randn((B, L, C), generator=gen, device=dev)
-        f1 = torch.randn((B, L, C), generator=gen, device=dev)
+        f0, f1 = feats(B, L, C), feats(B, L, C)
+        g0, g1 = f0.float(), f1.float()
         grid = coord_grid(h, w, device=dev).reshape(L, 2)
+        err = errs(f0, f1, grid, label, full=B == TINY_PAIRS)
         got = cs.fused_pos_embed(f0, f1, grid)
-        ref = cs.fused_pos_embed_plain(f0, f1, grid)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        fail_if(not math.isfinite(err) or err > 1e-4, f"corr_softmax {label}: max_abs_err {err}")
-        del ref
-        # library yardstick: SDPA with the grid zero-padded to C = 64 columns
-        # (a value width every SDPA backend takes with fp32 inputs)
-        q, k = f0[:, None], f1[:, None]
         v = F.pad(grid, (0, C - 2))[None, None].expand(B, 1, L, C).contiguous()
+        vb = v.to(torch.bfloat16)
+        q, k, qb, kb = g0[:, None], g1[:, None], f0[:, None], f1[:, None]
         lib = F.scaled_dot_product_attention(q, k, v)[:, 0, :, :2]
         torch.cuda.synchronize()
-        flops = 2.0 * B * L * L * C
-        nbytes = 4.0 * (2 * B * L * C + 2 * L + 2 * B * L)
-        b_ms, b_by = bound(nbytes, flops)
+        nbytes = 2.0 * 2 * B * L * C + 4.0 * (2 * L + 2 * B * L)
+        b_ms, b_by = bound(nbytes, 2.0 * B * L * L * C, float(B * L * L))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb), 5)
         rows.append(dict(shape=label, dims=[B, L, L, C], calls=calls,
-                         max_abs_err=max(err, *ragged), tol=1e-4, ragged_max_abs_err=ragged,
+                         max_abs_err=max(max(err.values()), *(max(x for k, x in r.items()
+                                                                   if k != "dims")
+                                                               for r in ragged)),
+                         tol=1e-4, err=err, ragged=ragged,
                          sdpa_max_abs_diff=(lib - got).abs().max().item(),
                          ms=cuda_ms(lambda: cs.fused_pos_embed(f0, f1, grid), 5),
+                         fp32_ms=cuda_ms(lambda: cs.fused_pos_embed(g0, g1, grid), 5),
                          plain_ms=cuda_ms(lambda: cs.fused_pos_embed_plain(f0, f1, grid), 2, 1),
-                         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5),
+                         library_ms=lib_ms,
+                         library_fp32_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5),
                          bound_ms=b_ms, bound_by=b_by))
-        del f0, f1, q, k, v, lib, got
+        del f0, f1, g0, g1, q, k, v, vb, qb, kb, lib, got
         torch.cuda.empty_cache()
     return rows
 
@@ -792,17 +964,27 @@ def per_scale_diffs(gpu, cpu, a, b, dev) -> dict:
     99.9th percentile |dflow| (normalized coordinates) and mean |dcert|
     (certainty logits). The card's upsample pass runs twice: from its own
     coarse flow, as match() does, and from the CPU's coarse flow, which
-    leaves only the upsample pass's own differences."""
+    leaves only the upsample pass's own differences. `decoder_margins`
+    reads the match decoder's class logits of the coarse pass (C1)."""
     import torch
 
     cfg = cpu.cfg
     (hc, wc), (hu, wu) = cfg.coarse_resolution, cfg.upsample_resolution
     sf = math.sqrt((hu * wu) / (hc * wc))
+    logits = {}
+
+    def keep(name):
+        return lambda mod, args, out: logits.__setitem__(name, out[0].float().cpu())
+
+    hooks = [m.model.decoder.embedding_decoder.register_forward_hook(keep(name))
+             for name, m in (("gpu", gpu), ("cpu", cpu))]
     with torch.inference_mode():
         ac, bc = cpu._preprocess(a, b, hs=hc, ws=wc)
         au, bu = cpu._preprocess(a, b, hs=hu, ws=wu)
         coarse_cpu = cpu.model(ac, bc, symmetric=cfg.symmetric)
         coarse_gpu = gpu.model(ac.to(dev), bc.to(dev), symmetric=cfg.symmetric)
+        for hk in hooks:
+            hk.remove()
 
         def upsample(matcher, coarse, d):
             return matcher.model(au.to(d), bu.to(d), symmetric=cfg.symmetric, upsample=True,
@@ -824,7 +1006,32 @@ def per_scale_diffs(gpu, cpu, a, b, dev) -> dict:
         return out
 
     return {"coarse": stats(coarse_gpu, coarse_cpu), "upsample": stats(up_gpu, up_cpu),
-            "upsample_from_cpu_coarse": stats(up_fed, up_cpu)}
+            "upsample_from_cpu_coarse": stats(up_fed, up_cpu),
+            "decoder_margins": decoder_margins(logits, coarse_gpu[16]["flow"].float().cpu(),
+                                               coarse_cpu[16]["flow"].float())}
+
+
+def decoder_margins(logits: dict, flow_gpu, flow_cpu, thresh: float = 0.1) -> dict:
+    """The match decoder's top-2 class-logit margin (top1 - top2, CPU
+    logits) over all scale-16 pixels and at those whose GPU and CPU flows
+    differ by more than `thresh` in either coordinate, with the share of
+    those pixels whose winning class differs between GPU and CPU: a flip of
+    near-tied classes moves the decoded flow by a whole anchor."""
+    import torch
+
+    cpu, gpu = logits["cpu"], logits["gpu"]
+    top = torch.topk(cpu, 2, dim=-1).values
+    margin = top[..., 0] - top[..., 1]
+    diff = (flow_gpu - flow_cpu).abs().amax(-1) > thresh
+    flipped = gpu.argmax(-1) != cpu.argmax(-1)
+    at = margin[diff]
+    q = lambda t, x: torch.quantile(t, x).item() if t.numel() else float("nan")
+    return dict(pixels=margin.numel(), differing=int(diff.sum()),
+                margin_median_all=q(margin, 0.5), margin_q10_all=q(margin, 0.1),
+                margin_median_differing=q(at, 0.5),
+                margin_max_differing=at.max().item() if at.numel() else float("nan"),
+                argmax_flipped_all=int(flipped.sum()),
+                argmax_flipped_differing=int((flipped & diff).sum()))
 
 
 def print_rows(card: str, rows: dict, name: str) -> None:
@@ -857,6 +1064,27 @@ def print_dw_chain(card: str, rows: list[dict]) -> None:
         print(f"[{card}] dw_chain ragged {g['dims']} x{g['blocks']}: err {g['max_abs_err']:.3e} "
               f"(worst {g['worst_err_over_tol']:.3f} of tol), differing {g['differing_share']:.2e}",
               flush=True)
+
+
+def print_local_corr(card: str, rows: list[dict]) -> None:
+    """K1 per shape and input: error, time (and the parent's), share of
+    tiles on the shared-window path, window-row bytes and their read rate,
+    the union's median / 90th percentile, reuse; then the tile count per
+    path over all inputs."""
+    for r in rows:
+        for kind, v in r["inputs"].items():
+            parent = (f", parent {v['parent_ms']:.4f} ms (err {v['parent_max_abs_err']:.2e})"
+                      if "parent_ms" in v else "")
+            print(f"[{card}] local_corr {r['shape']} {kind}: err {v['max_abs_err']:.2e}, "
+                  f"{v['ms']:.4f} ms{parent}, bound {v['bound_ms']:.4f}; shared tiles "
+                  f"{v['shared_tiles']}/{v['tiles']}; corners/pixel {v['corners_per_pixel']:.1f}, "
+                  f"window rows {v['window_row_bytes'] / 1e9:.3f} GB at {v['read_rate_tb_s']:.2f} "
+                  f"TB/s; union median {v['union_median']:.0f} / q90 {v['union_q90']:.0f} px, "
+                  f"reuse {v['reuse']:.1f}", flush=True)
+    for v in rows[0]["ragged"]:
+        print(f"[{card}] local_corr ragged {v['dims']} r {v['radius']} {v['flow']}: err "
+              f"{v['max_abs_err']:.2e}, shared tiles {v['shared_tiles']}/{v['tiles']}", flush=True)
+    print(f"[{card}] local_corr tiles per path over all inputs: {rows[0]['tiles_on']}", flush=True)
 
 
 def run_tiny(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
@@ -1064,6 +1292,9 @@ def main() -> int:
                     help="also trace one match() with torch.profiler")
     ap.add_argument("--out", type=Path, default=ROOT / "results" / "chip_smoke",
                     help="directory for chip_smoke.json and the profile table")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout whose local-correlation kernel is timed beside this "
+                         "one on the same inputs")
     args = ap.parse_args()
 
     import torch
@@ -1099,8 +1330,9 @@ def main() -> int:
     cfg = matcher.cfg
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    parent = None if args.parent is None else parent_local_corr(args.parent.resolve())
     rows = {
-        "local_corr": check_local_corr(dev, gen, cfg),
+        "local_corr": check_local_corr(dev, gen, cfg, capture_local_corr(matcher, gen, dev), parent),
         "dw_chain": check_dw_chain(dev, gen, cfg, chain_params(matcher.model)),
         "flash_attn": check_flash_attn(dev, gen, cfg),
         "dw_affine_relu": check_dw_affine_relu(dev, gen, cfg),
@@ -1117,6 +1349,7 @@ def main() -> int:
           f"{[r['k4_cudnn_1x1_ms'] for r in rows['dw_block_mm']]}; ragged max_abs_err "
           f"{rows['dw_block_mm'][0]['ragged_max_abs_err']}", flush=True)
     print_dw_chain(card, rows["dw_chain"])
+    print_local_corr(card, rows["local_corr"])
 
     expected = expected_launches(cfg)
     out_dir = args.out
@@ -1145,7 +1378,11 @@ def main() -> int:
     ref = report["small_reference"]
     print(f"[{card}] debug model GPU vs CPU: " + json.dumps(
         {k: v for k, v in ref.items() if k != "per_scale"}), flush=True)
+    print(f"[{card}] debug model match decoder top-2 logit margins (C1): "
+          + json.dumps(ref["per_scale"]["decoder_margins"]), flush=True)
     for pass_, scales in ref["per_scale"].items():
+        if pass_ == "decoder_margins":
+            continue
         print(f"[{card}] debug model GPU vs CPU, {pass_} pass per scale (|dflow| max / 99.9% / "
               "mean |dcert|): " + "; ".join(
                   f"{s} {v['max_flow']:.3e} / {v['q999_flow']:.3e} / {v['mean_cert']:.3e}"
@@ -1153,6 +1390,13 @@ def main() -> int:
 
     rows["corr_softmax"] = check_corr_softmax(dev, gen)
     print_rows(card, rows, "corr_softmax")
+    for r in rows["corr_softmax"]:
+        print(f"[{card}] corr_softmax {r['shape']}: bf16 entry {r['ms']:.4f} ms (err "
+              f"{r['err']['bf16']:.2e}), fp32 entry {r['fp32_ms']:.4f} ms (err "
+              f"{r['err']['fp32']:.2e}; on fp32 randn "
+              f"{r['err'].get('fp32 randn', float('nan')):.2e}), SDPA bf16 flash {r['library_ms']:.4f} ms, SDPA fp32 "
+              f"{r['library_fp32_ms']:.4f} ms", flush=True)
+    print(f"[{card}] corr_softmax ragged: {rows['corr_softmax'][0]['ragged']}", flush=True)
     report["tiny"] = run_tiny(dev, gen, card, out_dir if args.profile else None)
     rows["windowed_sample"] = check_windowed_sample(dev, gen, cfg)
     print_rows(card, rows, "windowed_sample")

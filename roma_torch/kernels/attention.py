@@ -23,19 +23,20 @@ HEAD_DIMS = (64, 128)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v written out, float32 arithmetic, output in
-    q's dtype. (B,N,H,d) in and out."""
-    d = q.shape[-1]
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) / math.sqrt(d)
+    """softmax(q k^T / sqrt(d)) v written out, float32 arithmetic (float64
+    for float64 inputs), output in q's dtype. (B,N,H,d) in and out."""
+    d, ct = q.shape[-1], runtime.compute_dtype(q)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(ct), k.to(ct)) / math.sqrt(d)
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", p, v.to(ct)).to(q.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    """CPU tensors take the plain version; CUDA tensors launch the kernel,
+    differentiable through the plain version."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return attention_cuda(q, k, v)
+    return runtime.with_plain_backward(attention_cuda, attention_plain, q, k, v)
 
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

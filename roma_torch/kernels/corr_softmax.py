@@ -5,8 +5,9 @@ Replaces the TPU kernel ``roma_tpu/ops/pallas/corr_softmax.py::
 fused_pos_embed``: for every target position p,
 ``warp[p] = sum_j softmax_j(<f0[p], f1[j]> / sqrt(C)) * grid[j]``, without
 the (L0, L1) correlation volume. Bound and design: see the note at the top
-of the CUDA source (operations; flash-attention streaming with fp32 scores,
-per-thread partial softmax states merged once at the end).
+of the CUDA source (operations: the products and one exponential a score;
+flash-attention streaming, bf16 features scored on the tensor cores by
+mma.sync, fp32 features on the CUDA cores).
 """
 
 from __future__ import annotations
@@ -31,10 +32,15 @@ def fused_pos_embed_plain(f0: torch.Tensor, f1: torch.Tensor,
 
 
 def fused_pos_embed(f0: torch.Tensor, f1: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    """CPU tensors take the plain version; CUDA tensors launch the kernel's
+    entry for their dtype (bf16 or float32)."""
     if f0.device.type == "cpu":
         return fused_pos_embed_plain(f0, f1, grid)
     return fused_pos_embed_cuda(f0, f1, grid)
+
+
+# features' dtype -> the kernel's C entry
+ENTRIES = {torch.bfloat16: "roma_corr_softmax_bf16", torch.float32: "roma_corr_softmax"}
 
 
 def fused_pos_embed_cuda(f0: torch.Tensor, f1: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -42,15 +48,17 @@ def fused_pos_embed_cuda(f0: torch.Tensor, f1: torch.Tensor, grid: torch.Tensor)
     L1 = f1.shape[1]
     if C not in CHANNELS or L1 < 1:
         raise ValueError(f"{NAME}: C must be one of {CHANNELS} and L1 >= 1 (C={C}, L1={L1})")
+    if f0.dtype not in ENTRIES:
+        raise TypeError(f"{NAME}: features must be bfloat16 or float32, got {f0.dtype}")
     dev = f0.device
-    runtime.require(NAME, f0, (B, L0, C), torch.float32, dev)
-    runtime.require(NAME, f1, (B, L1, C), torch.float32, dev)
+    runtime.require(NAME, f0, (B, L0, C), f0.dtype, dev)
+    runtime.require(NAME, f1, (B, L1, C), f0.dtype, dev)
     runtime.require(NAME, grid, (L1, 2), torch.float32, dev)
-    if f0.data_ptr() % 16 or f1.data_ptr() % 16:
-        raise ValueError(f"{NAME}: features must be 16-byte aligned")
+    if f0.data_ptr() % 16 or f1.data_ptr() % 16 or grid.data_ptr() % 8:
+        raise ValueError(f"{NAME}: features must be 16-byte aligned, the grid 8-byte aligned")
     out = torch.empty((B, L0, 2), dtype=torch.float32, device=dev)
     lib = runtime.load(NAME)
-    fn = lib.roma_corr_softmax
+    fn = getattr(lib, ENTRIES[f0.dtype])
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     scale_log2 = math.log2(math.e) / math.sqrt(C)

@@ -9,8 +9,8 @@ see the note at the top of the CUDA source (bytes; one block per band of
 whole rows, or per 1-8 whole small planes, read as one contiguous range
 with 16-byte vector loads). `band_plan` chooses the bands.
 
-Inference only: no backward. The JAX function's `custom_vjp` is its plain
-reference's VJP; training is a later module of the port.
+Its backward is the plain version's (`runtime.PlainBackward`), as the JAX
+function's `custom_vjp` is its plain reference's VJP.
 """
 
 from __future__ import annotations
@@ -105,20 +105,22 @@ def _kernel():
 
 def dw5x5_affine_relu_plain_nchw(x, w, scale, shift):
     """(B,C,H,W) -> (B,C,H,W) in x's dtype; w (k,k,C) (k = 5 on the kernel
-    path), scale/shift (C,) float32. Float32 conv of x's values, `* scale`,
-    `+ shift` as two separate operations, ReLU, one rounding to x's dtype."""
-    C, k = x.shape[1], w.shape[0]
-    y = F.conv2d(x.float(), w.float().permute(2, 0, 1)[:, None], padding=k // 2, groups=C)
-    y = y * scale.float()[:, None, None] + shift.float()[:, None, None]
+    path), scale/shift (C,) float32. Float32 (float64 for float64 x) conv
+    of x's values, `* scale`, `+ shift` as two separate operations, ReLU, one
+    rounding to x's dtype."""
+    C, k, ct = x.shape[1], w.shape[0], runtime.compute_dtype(x)
+    y = F.conv2d(x.to(ct), w.to(ct).permute(2, 0, 1)[:, None], padding=k // 2, groups=C)
+    y = y * scale.to(ct)[:, None, None] + shift.to(ct)[:, None, None]
     return torch.relu(y).to(x.dtype)
 
 
 def dw5x5_affine_relu_nchw(x, w, scale, shift):
     """The block on (B,C,H,W); CPU tensors take the plain version, CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, differentiable through the plain version."""
     if x.device.type == "cpu":
         return dw5x5_affine_relu_plain_nchw(x, w, scale, shift)
-    return dw5x5_affine_relu_cuda_nchw(x, w, scale, shift)
+    return runtime.with_plain_backward(dw5x5_affine_relu_cuda_nchw, dw5x5_affine_relu_plain_nchw,
+                                       x, w, scale, shift)
 
 
 def dw5x5_affine_relu_cuda_nchw(x, w, scale, shift):

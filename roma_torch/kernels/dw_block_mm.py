@@ -10,7 +10,8 @@ it for scale 2); the tests and `chip_smoke.py` reach it. Bound and design:
 see the note at the top of the CUDA source (bytes; the depthwise part per
 16-channel chunk into a shared-memory y tile, the mix on the tensor cores).
 
-Inference only: no backward (the JAX `custom_vjp` is its reference's VJP).
+Its backward is the plain version's (`runtime.PlainBackward`), as the JAX
+`custom_vjp` is its reference's VJP.
 """
 
 from __future__ import annotations
@@ -29,10 +30,11 @@ MAX_CHANNELS = 160
 def dw5x5_affine_relu_mm_nchw(x, w, scale, shift, m, bias):
     """The block on (B,C,H,W) -> (B,C,H,W); w (5,5,C), m (C,C) with
     z[d] = sum_c m[c, d] y[c]. CPU tensors take the plain version, CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, differentiable through the plain version."""
     if x.device.type == "cpu":
         return block_plain_nchw(x, w, scale, shift, m, bias)
-    return dw5x5_affine_relu_mm_cuda_nchw(x, w, scale, shift, m, bias)
+    return runtime.with_plain_backward(dw5x5_affine_relu_mm_cuda_nchw, block_plain_nchw,
+                                       x, w, scale, shift, m, bias)
 
 
 def dw5x5_affine_relu_mm_cuda_nchw(x, w, scale, shift, m, bias):

@@ -92,9 +92,10 @@ def block_plain_nchw(x, w, scale, shift, m, bias):
     """One fused block, plain PyTorch, (B,C,H,W) -> (B,C,H,W). w (5,5,C),
     m (C,C) with z[d] = sum_c m[c, d] y[c]. Same rounding points as the
     JAX package's `_mm_reference`: the ReLU output and the block output are
-    rounded to x's dtype; the sums are float32."""
+    rounded to x's dtype; the sums are float32 (float64 for float64 x)."""
     y = dw5x5_affine_relu_plain_nchw(x, w, scale, shift)
-    z = torch.einsum("bchw,cd->bdhw", y.float(), m.float()) + bias.float()[:, None, None]
+    ct = runtime.compute_dtype(x)
+    z = torch.einsum("bchw,cd->bdhw", y.to(ct), m.to(ct)) + bias.to(ct)[:, None, None]
     return z.to(x.dtype)
 
 

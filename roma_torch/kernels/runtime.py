@@ -9,7 +9,13 @@ never loaded. Nothing here runs at import
 time: the package imports on machines without ``nvcc`` or a GPU.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
-and nowhere else.
+and nowhere else. No kernel has a backward of its own: `grad_needed` is the
+gates' test for a forward that autograd records (the kernels of local
+correlation, the chained blocks, the windowed gather and the correlation
+softmax then give way to their plain versions, as the JAX package routes
+them only when not training), and `PlainBackward` differentiates attention
+and the depthwise blocks through their plain versions, as the JAX
+package's custom_vjp's do.
 """
 
 from __future__ import annotations
@@ -142,3 +148,43 @@ def require(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def grad_needed(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record through a kernel called on `tensors`:
+    grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type for `t`: float32, or float64 for
+    float64 inputs (as gradcheck uses)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+class PlainBackward(torch.autograd.Function):
+    """`forward(*inputs)` (a kernel) with the backward of `plain(*inputs)`:
+    the backward recomputes the plain version under autograd from the saved
+    inputs and differentiates it. Every input is a tensor."""
+
+    @staticmethod
+    def forward(ctx, forward, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
+            out = ctx.plain(*xs)
+        grads = iter(torch.autograd.grad(out, [x for x, n in zip(xs, need) if n], grad))
+        return (None, None, *(next(grads) if n else None for n in need))
+
+
+def with_plain_backward(forward, plain, *inputs: torch.Tensor) -> torch.Tensor:
+    """forward(*inputs), through `PlainBackward` when autograd records it."""
+    if grad_needed(*inputs):
+        return PlainBackward.apply(forward, plain, *inputs)
+    return forward(*inputs)

@@ -7,7 +7,9 @@ block1 + N hidden depthwise-separable blocks (k=5 grouped conv -> BN ->
 ReLU -> 1x1 conv, BN folded into a scale/shift at inference), and emits
 (delta_flow, delta_certainty) from a float32 1x1 head.
 
-Kernel gates:
+Kernel gates (every one also requires that autograd is not recording
+through the kernel, `runtime.grad_needed`, as the JAX package's gates
+require `not train`):
 - local correlation goes to the local-correlation kernel for r <= 7 and
   C % 128 == 0 (scales 16/8/4), as in the JAX package;
 - a narrow stack (hidden_dim < 64, k = 5, input width == hidden_dim: the
@@ -20,7 +22,8 @@ Kernel gates:
 - with `smooth_warp` set (RomaConfig.smooth_warp_gather), the warp of a map
   with <= 16 channels (the scale-1 refiner's 9) goes through the windowed
   warp-gather kernel in "fast" or "exact" mode, as in the JAX package.
-The kernel wrappers take their plain versions for CPU tensors.
+The kernel wrappers take their plain versions for CPU tensors; the
+wide-channel depthwise kernel differentiates through its plain version.
 
 Features are NCHW inside; flows are (B, H, W, 2) as in the JAX package.
 """
@@ -30,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from roma_torch.kernels import dw_affine_relu, dw_chain
+from roma_torch.kernels import dw_affine_relu, dw_chain, runtime
 from roma_torch.kernels import local_corr as local_corr_kernel
 from roma_torch.kernels.windowed_sample import grid_sample_smooth_nchw
 from roma_torch.models.layers import conv2d
@@ -108,7 +111,7 @@ class ConvRefiner(nn.Module):
         Returns (delta_flow (B,H,W,2), delta_certainty (B,H,W,1)) float32."""
         dt = self.dtype
         B, C, H, W = x.shape
-        if self.smooth_warp:
+        if self.smooth_warp and not runtime.grad_needed(y, flow):
             mode = "fast" if self.smooth_warp == "fast" else "exact"
             x_hat = grid_sample_smooth_nchw(y, flow, mode).to(dt)
         else:
@@ -122,14 +125,15 @@ class ConvRefiner(nn.Module):
             f0 = x.to(dt).permute(0, 2, 3, 1).contiguous()
             f1 = y.to(dt).permute(0, 2, 3, 1).contiguous()
             fl = flow.float().contiguous()
-            if local_corr_kernel.use_kernel(r, C):
+            if local_corr_kernel.use_kernel(r, C, f0, f1, fl):
                 corr = local_corr_kernel.local_correlation(f0, f1, r, fl)
             else:
                 corr = local_correlation(f0, f1, r, fl)
             parts.append(corr.to(dt).permute(0, 3, 1, 2))
         d = torch.cat(parts, dim=1)
 
-        if self.use_chain(d.shape[1]):
+        if self.use_chain(d.shape[1]) and not runtime.grad_needed(
+                d, *(p for blk in self.blocks() for p in blk.parameters())):
             cols = [blk.fused(dt) for blk in self.blocks()]
             d = dw_chain.chain_nchw(
                 d.contiguous(), *(torch.stack([c[i] for c in cols]).contiguous()

@@ -24,6 +24,7 @@ from torch.profiler import record_function
 
 from roma_torch.config import TinyRomaConfig
 from roma_torch.device import resolve_device
+from roma_torch.kernels import runtime
 from roma_torch.kernels.corr_softmax import fused_pos_embed
 from roma_torch.models import api
 from roma_torch.models.layers import ConvBlock, conv2d
@@ -93,13 +94,16 @@ class TinyRoma(nn.Module):
             return row_pos_embed(a, b)
         if cfg.search_mode == "band":
             return banded_pos_embed(a, b, cfg.band_radius)
-        if cfg.fused_kernel:
+        grad = runtime.grad_needed(f0c, f1c)
+        if cfg.fused_kernel and not grad:
+            # the features as they are (bf16 from the trunk): the kernel's
+            # bf16 entry scores them on the tensor cores
             grid1 = coord_grid(h8, w8, device=f0c.device).reshape(h8 * w8, 2)
-            warp = fused_pos_embed(a.reshape(B, h8 * w8, -1).float().contiguous(),
-                                   b.reshape(B, h8 * w8, -1).float().contiguous(), grid1)
+            warp = fused_pos_embed(a.reshape(B, h8 * w8, -1).contiguous(),
+                                   b.reshape(B, h8 * w8, -1).contiguous(), grid1)
             return warp.reshape(B, h8, w8, 2)
         cv = corr_volume(a, b)
-        if cfg.exact_softmax:
+        if cfg.exact_softmax or grad:
             warp = pos_embed_expectation(cv, (h8, w8))
         else:
             warp = pos_embed_fast(cv, (h8, w8), faithful=cfg.faithful_fast_path)

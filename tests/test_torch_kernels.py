@@ -166,3 +166,34 @@ def test_corr_softmax_plain_peaked(rng):
                                        chunk=32, tile=32, interpret=True))
     got = tcs.fused_pos_embed(*(torch.from_numpy(a) for a in (f0, f1, grid))).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("l0,l1,c", [(70, 45, 16), (129, 65, 32), (100, 193, 64)])
+def test_corr_softmax_bf16_plain_matches_pallas_interpret(rng, l0, l1, c):
+    """Tiny RoMa's features are bf16; the kernel's bf16 entry computes the
+    function on their values. The plain version on bf16 tensors against JAX
+    `fused_pos_embed(interpret=True)` on the same values in fp32 (as the
+    JAX model casts them), ragged L0 and L1 against the kernel's 128-row
+    blocks and 64-column chunks. Tolerance 2e-4, as the fp32 test."""
+    f0 = _bf16_np(rng.standard_normal((2, l0, c)))
+    f1 = _bf16_np(rng.standard_normal((2, l1, c)))
+    grid = rng.uniform(-1, 1, (l1, 2)).astype(np.float32)
+    ref = np.asarray(j_fused_pos_embed(jnp.asarray(f0), jnp.asarray(f1), jnp.asarray(grid),
+                                       chunk=64, tile=64, interpret=True))
+    got = tcs.fused_pos_embed(torch.from_numpy(f0).to(torch.bfloat16),
+                              torch.from_numpy(f1).to(torch.bfloat16), torch.from_numpy(grid))
+    assert got.shape == (2, l0, 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=0)
+
+
+def test_corr_softmax_dtype_dispatch(rng):
+    """One C entry per features' dtype, both hand-written; on the CPU both
+    dtypes take the plain version, which gives the same values for bf16
+    features as for their fp32 copies."""
+    assert tcs.ENTRIES == {torch.bfloat16: "roma_corr_softmax_bf16",
+                           torch.float32: "roma_corr_softmax"}
+    f0 = torch.from_numpy(rng.standard_normal((1, 30, 16)).astype(np.float32)).to(torch.bfloat16)
+    f1 = torch.from_numpy(rng.standard_normal((1, 40, 16)).astype(np.float32)).to(torch.bfloat16)
+    grid = torch.from_numpy(rng.uniform(-1, 1, (40, 2)).astype(np.float32))
+    assert torch.equal(tcs.fused_pos_embed(f0, f1, grid),
+                       tcs.fused_pos_embed(f0.float(), f1.float(), grid))
