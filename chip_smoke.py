@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the roma_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--out DIR] [--parent CHECKOUT]
+    python3 chip_smoke.py [--profile] [--out DIR]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the seven CUDA kernels from roma_torch/csrc (one nvcc each, in
@@ -22,12 +22,15 @@
    block). Local correlation runs on the inputs the main path hands it
    (captured from one default match()) and on a scattered and a smooth
    synthetic flow, with the path each 8 x 8 tile took held against
-   `tile_plan` (and, with --parent, the kernel of another checkout timed
-   beside it on the same inputs); the correlation softmax through both its
-   entries, bf16 and float32. The whole-block kernel (dw_block_mm) is on
-   no model path, as in the JAX package: it is checked and timed here at
-   the scale-2 and scale-1 shapes beside "wide depthwise kernel + cuDNN
-   1x1", and its launches in the kernels line are 0;
+   `tile_plan`; the correlation softmax through both its entries, bf16 and
+   float32. The whole-block kernel (dw_block_mm) is on no model path, as in
+   the JAX package: it is checked and timed here at the scale-2 and scale-1
+   shapes beside "wide depthwise kernel + cuDNN 1x1", and its launches in
+   the kernels line are 0. The windowed gather runs both its modes on a
+   smooth and a random flow, its in-kernel origins and `ok` held against
+   the plan, the exact mode under a sync-raising debug mode, and a float32
+   map (other builds of a kernel are timed side by side by
+   kernel_variants.py);
 5. default full RoMa: RomaMatcher.match on 2 pairs, once to warm up, once
    with the launch counters reset just before it and read just after it
    (each kernel must show exactly its expected launches), and 3 more times
@@ -44,7 +47,8 @@
    way (one correlation-softmax launch, nothing else), timed, beside the
    same weights with fused_kernel=False, plus one 1056x1920 pair and a
    small GPU-vs-CPU check;
-8. full RoMa with smooth_warp_gather="fast": counted (2 windowed-gather
+8. full RoMa with smooth_warp_gather="fast", then the same weights with
+   smooth_warp_gather=True ("exact"): each counted (2 windowed-gather
    launches with the default path's others), timed, outputs checked;
 9. prints the kernels JSON line, then {"ok": true, "device": ...} last.
 
@@ -195,39 +199,7 @@ def capture_local_corr(matcher, gen, dev) -> list:
     return calls
 
 
-def parent_local_corr(parent: Path):
-    """The local-correlation kernel of another checkout (its
-    roma_torch/csrc/local_corr.cu, built with this checkout's flags) as a
-    function of (f0, f1, r, flow), to time beside this one on the same
-    inputs. Its C entry has the one-warp-per-pixel kernel's signature."""
-    import ctypes
-
-    import torch
-
-    from roma_torch.kernels import runtime
-
-    runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_file = runtime.BUILD_DIR / "parent_local_corr.so"
-    subprocess.run([runtime.nvcc(), *runtime.NVCC_FLAGS, "-o", str(lib_file),
-                    str(parent / "roma_torch" / "csrc" / "local_corr.cu")],
-                   check=True, capture_output=True, timeout=600)
-    fn = ctypes.CDLL(str(lib_file)).roma_local_corr
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(f0, f1, r, flow):
-        B, H, W, C = f0.shape
-        out = torch.empty((B, H, W, (2 * r + 1) ** 2), dtype=torch.float32, device=f0.device)
-        scale = (1.0 / torch.sqrt(torch.tensor(float(C)))).item()
-        rc = fn(f0.data_ptr(), f1.data_ptr(), flow.data_ptr(), out.data_ptr(), B, H, W, C, r,
-                scale, runtime.stream_handle(f0))
-        fail_if(rc != 0, f"parent local_corr: launch failed ({rc})")
-        return out
-
-    return run
-
-
-def check_local_corr(dev, gen, cfg, captured, parent=None):
+def check_local_corr(dev, gen, cfg, captured):
     """K1 at refiners 16/8/4 of both passes (B' = 4 images), on three inputs
     each: the (f0, f1, flow) the main path hands it (`captured`, from one
     default match()), random features on a scattered flow (identity + 0.3
@@ -240,9 +212,8 @@ def check_local_corr(dev, gen, cfg, captured, parent=None):
     window-row bytes (in-range corners x C x 2) and their read rate, the
     tile window union's median and 90th percentile, reuse (corner reads
     over union pixels), the kernel's time, the bound (bytes of f0, f1, the
-    flow and the output) and, with `parent`, the parent kernel's time on
-    the same inputs. The headline row is the captured input's, its plain
-    time too. Then C = 640 and 1024 on both paths (`ragged`)."""
+    flow and the output). The headline row is the captured input's, its
+    plain time too. Then C = 640 and 1024 on both paths (`ragged`)."""
     import torch
 
     from roma_torch.kernels import local_corr as lc
@@ -298,9 +269,6 @@ def check_local_corr(dev, gen, cfg, captured, parent=None):
                        union_median=torch.quantile(unions, 0.5).item(),
                        union_q90=torch.quantile(unions, 0.9).item(),
                        reuse=corners / unions.sum().item())
-            if parent is not None:
-                res["parent_max_abs_err"] = (parent(a, b, r, fl) - ref).abs().max().item()
-                res["parent_ms"] = cuda_ms(lambda: parent(a, b, r, fl), 20)
             inputs[kind] = res
         head = inputs["captured"]
         rows.append(dict(shape=label, dims=[B, h, h, C], radius=r, calls=1,
@@ -773,16 +741,29 @@ def smooth_sine_grid(B: int, H: int, W: int, dev):
 
 
 def check_windowed_sample(dev, gen, cfg):
-    """The scale-1 warp of both passes: feat (4, 9, h, h) bf16, grid
-    (4, h, h, 2) at h = 560 and 864. On a smooth flow "exact" must find ok,
-    launch once and equal F.grid_sample, "fast" must equal the plain
-    version; on a random flow "fast" must equal the plain version and
-    "exact" must launch nothing and equal F.grid_sample. Tolerance: one bf16
-    ulp at the output's largest magnitude, 2^-7 x max(1, max|ref|). The
-    kernel and the plain version do the same float32 arithmetic in the same
-    order and round once to bf16 (so they should agree exactly);
-    F.grid_sample's float32 sums in another order can move that rounding by
-    one ulp."""
+    """The scale-1 warp of both passes: feat (4, 9, h, h) bf16, channels
+    last (the refiner's layout, which the kernel reads) and contiguous
+    (which the public entry converts), grid (4, h, h, 2) at h = 560 and
+    864, on a smooth and a random flow. The
+    kernel's origins (its debug buffer) must equal plan()'s bit for bit and
+    its `ok` must equal `smoothness_ok` (True on the smooth flow, False on
+    the random one), in both modes; "fast" must equal the plain version;
+    "exact" must launch once, raise nothing under
+    torch.cuda.set_sync_debug_mode("error") (no host read of `ok`), and
+    equal grid_sample on both flows. Then one float32 map at h = 560, both
+    modes, and a 32-channel map with `with_ok` (plain grid_sample, the
+    kernel launched once for `ok` alone). Tolerance: one bf16 ulp at the
+    output's largest magnitude,
+    2^-7 x max(1, max|ref|). The kernel and the plain version do the same
+    float32 arithmetic in the same order and round once (so they should
+    agree exactly); F.grid_sample's float32 sums in another order can move
+    that rounding by one ulp. Times (CUDA events, per call): the whole call
+    ("fast" on the random flow and the channels-last map is the kernels-line
+    time, as random weights give the main path rough flows) in both modes on
+    both flows and both layouts; the plain version with its plan;
+    F.grid_sample on the float32 map. (The first version's plain-torch plan
+    and padding, which ran before each launch, are timed by
+    `kernel_variants.py k6`.)"""
     import torch
     import torch.nn.functional as F
 
@@ -800,40 +781,98 @@ def check_windowed_sample(dev, gen, cfg):
         fail_if(not math.isfinite(err) or err > tol, f"windowed_sample {what}: max_abs_err {err} > {tol}")
         return err, tol
 
+    def run_checks(feat, grid, name, what):
+        """Both modes once through the kernel's wrapper on the channels-last
+        map (origins and `ok` checked) and once through the public entry on
+        `feat` as it is; errors and tolerances."""
+        h = grid.shape[1]
+        gp = ows.pad_grid(grid)
+        p = ows.plan(feat, gp, (h, h))
+        ok_ref = bool(ows.smoothness_ok(feat, gp, (h, h)))
+        fail_if(ok_ref != (name == "smooth"), f"windowed_sample {what}: smoothness_ok {ok_ref}")
+        res = {}
+        for mode in ("fast", "exact"):
+            ok = torch.ones((), dtype=torch.int32, device=dev)
+            origins = torch.full(kws.origins_shape(grid), -1, dtype=torch.int32, device=dev)
+            got = kws.windowed_sample_cuda(feat.contiguous(memory_format=torch.channels_last),
+                                           grid, mode == "exact", ok, origins)
+            torch.cuda.synchronize()
+            fail_if(not (torch.equal(origins[..., 0], p.ybase)
+                         and torch.equal(origins[..., 1], p.j0_abs)),
+                    f"windowed_sample {what} {mode}: the kernel's origins differ from plan()'s")
+            fail_if(bool(ok) != ok_ref, f"windowed_sample {what} {mode}: ok {bool(ok)} != {ok_ref}")
+            n0 = LAUNCHES["windowed_sample"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, ok2 = kws.grid_sample_smooth_nchw(feat, grid, mode, with_ok=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            launched = LAUNCHES["windowed_sample"] - n0
+            fail_if(launched != 1 or bool(ok2) != ok_ref or not torch.equal(out, got),
+                    f"windowed_sample {what} {mode}: {launched} launches, ok {bool(ok2)}")
+            ref = (ows.windowed_sample_plain(feat, gp, (h, h), p) if mode == "fast"
+                   else grid_sample_nchw(feat, grid))
+            res[mode] = err_of(got, ref, f"{what} {mode} vs {'plain' if mode == 'fast' else 'grid_sample'}")
+        return res
+
     for label, h in (("coarse s1", cfg.coarse_resolution[0]),
                      ("upsample s1", cfg.upsample_resolution[0])):
         feat = torch.randn((B, C, h, h), generator=gen, device=dev).to(torch.bfloat16)
-        smooth = smooth_sine_grid(B, h, h, dev)
-        rough = (torch.rand((B, h, h, 2), generator=gen, device=dev) * 2 - 1).contiguous()
-        kernel_errs, gs_errs, tols = [], [], []
-        for name, grid in (("smooth", smooth), ("random", rough)):
-            n0 = LAUNCHES["windowed_sample"]
-            got, ok = kws.grid_sample_smooth_nchw(feat, grid, "exact", with_ok=True)
-            torch.cuda.synchronize()
-            launched = LAUNCHES["windowed_sample"] - n0
-            fail_if(bool(ok) != (name == "smooth") or launched != int(name == "smooth"),
-                    f"windowed_sample {label} {name}: exact ok={bool(ok)}, {launched} launches")
-            e, t = err_of(got, grid_sample_nchw(feat, grid), f"{label} {name} exact vs grid_sample")
-            gs_errs.append(e)
-            fast = kws.grid_sample_smooth_nchw(feat, grid, "fast")
-            e, t = err_of(fast, ows.windowed_sample_plain(feat, ows.pad_grid(grid), (h, h)),
-                          f"{label} {name} fast vs plain")
-            kernel_errs.append(e)
-            tols.append(t)
-        # timed on the random flow, as random weights give the main path
-        gp = ows.pad_grid(rough)
-        p = ows.plan(feat, gp, (h, h))
-        feat32 = feat.float()
+        # the refiner's maps are channels last (its 1x1 projection's layout)
+        layouts = {"channels_last": feat.contiguous(memory_format=torch.channels_last),
+                   "contiguous": feat}
+        flows = {"smooth": smooth_sine_grid(B, h, h, dev),
+                 "random": (torch.rand((B, h, h, 2), generator=gen, device=dev) * 2 - 1).contiguous()}
+        checks = {(lay, name): run_checks(f, g, name, f"{label} {lay} {name}")
+                  for lay, f in layouts.items() for name, g in flows.items()}
+        whole = {lay: {f"{mode}_{name}": cuda_ms(lambda: kws.grid_sample_smooth_nchw(f, g, mode), 20)
+                       for name, g in flows.items() for mode in ("fast", "exact")}
+                 for lay, f in layouts.items()}
+        rough, feat_cl = flows["random"], layouts["channels_last"]
         n_pix = B * h * h
-        nbytes = B * C * h * h * 2 + gp.numel() * 4 + n_pix * C * 2
+        nbytes = B * C * h * h * 2 + n_pix * 2 * 4 + n_pix * C * 2
         b_ms, b_by = bound(nbytes, n_pix * C * 8.0)
-        rows.append(dict(shape=label, dims=[B, C, h, h], calls=1, max_abs_err=max(kernel_errs),
-                         tol=min(tols), exact_vs_grid_sample_err=max(gs_errs),
-                         ms=cuda_ms(lambda: kws.windowed_sample(feat, gp, (h, h), p), 20),
-                         plan_ms=cuda_ms(lambda: ows.plan(feat, gp, (h, h)), 10),
-                         plain_ms=cuda_ms(lambda: ows.windowed_sample_plain(feat, gp, (h, h), p), 5),
-                         library_ms=cuda_ms(lambda: F.grid_sample(feat32, rough, align_corners=False), 20),
-                         bound_ms=b_ms, bound_by=b_by))
+        row = dict(shape=label, dims=[B, C, h, h], calls=1,
+                   max_abs_err=max(e for c in checks.values() for e, _ in c.values()),
+                   tol=min(t for c in checks.values() for _, t in c.values()),
+                   errors={f"{lay} {n}": {m: e for m, (e, _) in c.items()}
+                           for (lay, n), c in checks.items()},
+                   ms=whole["channels_last"]["fast_random"], whole_ms=whole,
+                   plain_ms=cuda_ms(lambda: ows.windowed_sample_plain(
+                       feat_cl, ows.pad_grid(rough), (h, h)), 5),
+                   library_ms=cuda_ms(lambda: F.grid_sample(feat_cl.float(), rough,
+                                                            align_corners=False), 20),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        del feat, flows, layouts, feat_cl
+    # a float32 map at the coarse shape, both flows, both modes
+    h = cfg.coarse_resolution[0]
+    feat32 = torch.randn((B, C, h, h), generator=gen, device=dev)
+    rows[0]["float32"] = {}
+    for name, g in (("smooth", smooth_sine_grid(B, h, h, dev)),
+                    ("random", (torch.rand((B, h, h, 2), generator=gen, device=dev) * 2 - 1))):
+        for lay, f in (("channels_last", feat32.contiguous(memory_format=torch.channels_last)),
+                       ("contiguous", feat32)):
+            res = run_checks(f, g.contiguous(), name, f"coarse s1 float32 {lay} {name}")
+            rows[0]["float32"][f"{lay} {name}"] = dict(
+                errors={m: e for m, (e, _) in res.items()},
+                fast_ms=cuda_ms(lambda: kws.grid_sample_smooth_nchw(f, g, "fast"), 20))
+    # a map of more than 16 channels takes grid_sample; `with_ok` asks the
+    # kernel for `ok` alone (one launch, nothing staged)
+    wide = torch.randn((B, 32, h, h), generator=gen, device=dev).to(torch.bfloat16)
+    rows[0]["wide_ok"] = {}
+    for name, g in (("smooth", smooth_sine_grid(B, h, h, dev)),
+                    ("random", (torch.rand((B, h, h, 2), generator=gen, device=dev) * 2 - 1))):
+        g = g.contiguous()
+        n0 = LAUNCHES["windowed_sample"]
+        out, ok = kws.grid_sample_smooth_nchw(wide, g, "fast", with_ok=True)
+        torch.cuda.synchronize()
+        launched = LAUNCHES["windowed_sample"] - n0
+        ok_ref = bool(ows.smoothness_ok(wide, ows.pad_grid(g), (h, h)))
+        fail_if(launched != 1 or bool(ok) != ok_ref or not torch.equal(out, grid_sample_nchw(wide, g)),
+                f"windowed_sample C = {wide.shape[1]} {name}: {launched} launches, ok {bool(ok)} "
+                f"(smoothness_ok {ok_ref}), or not grid_sample's output")
+        rows[0]["wide_ok"][name] = bool(ok)
     return rows
 
 
@@ -1046,6 +1085,16 @@ def print_rows(card: str, rows: dict, name: str) -> None:
               flush=True)
 
 
+def print_windowed(card: str, rows: list[dict]) -> None:
+    """K6 per shape: the whole call in both modes on both flows and maps of
+    both layouts, the errors per flow and mode; the float32 map's."""
+    for r in rows:
+        print(f"[{card}] windowed_sample {r['shape']}: whole call ms {json.dumps(r['whole_ms'])}; "
+              f"errors {json.dumps(r['errors'])}", flush=True)
+    print(f"[{card}] windowed_sample float32 {rows[0]['shape']}: {json.dumps(rows[0]['float32'])}",
+          flush=True)
+
+
 def print_dw_chain(card: str, rows: list[dict]) -> None:
     """K2's per-shape detail: one block and chain against plain (error,
     worst error over tolerance, share of elements differing), per-launch
@@ -1067,16 +1116,14 @@ def print_dw_chain(card: str, rows: list[dict]) -> None:
 
 
 def print_local_corr(card: str, rows: list[dict]) -> None:
-    """K1 per shape and input: error, time (and the parent's), share of
+    """K1 per shape and input: error, time, share of
     tiles on the shared-window path, window-row bytes and their read rate,
     the union's median / 90th percentile, reuse; then the tile count per
     path over all inputs."""
     for r in rows:
         for kind, v in r["inputs"].items():
-            parent = (f", parent {v['parent_ms']:.4f} ms (err {v['parent_max_abs_err']:.2e})"
-                      if "parent_ms" in v else "")
             print(f"[{card}] local_corr {r['shape']} {kind}: err {v['max_abs_err']:.2e}, "
-                  f"{v['ms']:.4f} ms{parent}, bound {v['bound_ms']:.4f}; shared tiles "
+                  f"{v['ms']:.4f} ms, bound {v['bound_ms']:.4f}; shared tiles "
                   f"{v['shared_tiles']}/{v['tiles']}; corners/pixel {v['corners_per_pixel']:.1f}, "
                   f"window rows {v['window_row_bytes'] / 1e9:.3f} GB at {v['read_rate_tb_s']:.2f} "
                   f"TB/s; union median {v['union_median']:.0f} / q90 {v['union_q90']:.0f} px, "
@@ -1164,7 +1211,14 @@ def run_tiny(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
 def run_smooth_warp(dev, gen, card: str) -> dict:
     """Path B: full RoMa with smooth_warp_gather="fast", counted and timed
     as the default path, then one more match() that records, per pass,
-    whether the scale-1 flow was window-smooth (the `with_ok` flag)."""
+    whether the scale-1 flow was window-smooth (the `with_ok` flag); then
+    the same weights with smooth_warp_gather=True ("exact"), counted (2
+    windowed-gather launches, no host read of `ok`) and timed the same way.
+    Last, one pair of images matched in "exact" mode and with the smooth
+    warp off (the default path's grid_sample): exact mode computes the same
+    function, rounded once to bf16 per sample where grid_sample's float32
+    sums round in another order (one bf16 ulp apart at most), so the two
+    matches must agree within `match_diffs`' bounds."""
     import torch
 
     from roma_torch.models.zoo import roma_outdoor
@@ -1172,16 +1226,23 @@ def run_smooth_warp(dev, gen, card: str) -> dict:
 
     matcher = roma_outdoor(seed=SEED, device=dev, smooth_warp_gather="fast")
     cfg = matcher.cfg
-    warp, cert, launches, first_s, times = run_main_path(matcher, gen, dev)
-    res = dict(first_match_s=first_s, match_s=times, pairs_per_s=PAIRS / min(times),
-               launches=launches)
-    print(f"[{card}] match() smooth_warp_gather='fast' on 2 pairs: first {first_s:.3f} s, then "
-          f"{', '.join(f'{t:.4f}' for t in times)} s; best {res['pairs_per_s']:.3f} pairs/s; "
-          f"launches {launches}", flush=True)
     expected = dict(expected_launches(cfg), windowed_sample=2)
-    for name, n in expected.items():
-        fail_if(launches[name] != n, f"smooth warp: {name}: {launches[name]} launches, expected {n}")
-    check_outputs(matcher, warp, cert)
+    res = {}
+    for mode in ("fast", True):
+        for refiner in matcher.model.decoder.conv_refiner.values():
+            refiner.smooth_warp = mode
+        warp, cert, launches, first_s, times = run_main_path(matcher, gen, dev)
+        key = "fast" if mode == "fast" else "exact"
+        res[key] = dict(first_match_s=first_s, match_s=times, pairs_per_s=PAIRS / min(times),
+                        launches=launches)
+        print(f"[{card}] match() smooth_warp_gather={mode!r} on 2 pairs: first {first_s:.3f} s, "
+              f"then {', '.join(f'{t:.4f}' for t in times)} s; best "
+              f"{res[key]['pairs_per_s']:.3f} pairs/s; launches {launches}", flush=True)
+        for name, n in expected.items():
+            fail_if(launches[name] != n,
+                    f"smooth warp {key}: {name}: {launches[name]} launches, expected {n}")
+        check_outputs(matcher, warp, cert)
+    res["launches"] = res["fast"]["launches"]
 
     oks = []
 
@@ -1197,6 +1258,16 @@ def run_smooth_warp(dev, gen, card: str) -> dict:
     res["ok_share"] = sum(oks) / len(oks)
     print(f"[{card}] smooth warp: window-smooth share of scale-1 warps {res['ok_share']} "
           f"({oks}; random weights give rough flows)", flush=True)
+
+    ims = [torch.rand((PAIRS, h, w, 3), generator=gen, device=dev) for _ in range(2)]
+    outs = {}
+    for mode in (True, False):
+        for refiner in matcher.model.decoder.conv_refiner.values():
+            refiner.smooth_warp = mode
+        outs[mode] = timed_match(matcher, *ims)[:2]
+    res["exact_vs_default"] = cmp = match_diffs(*outs[True], *outs[False])
+    print(f"[{card}] smooth warp: exact match() vs the default match(): {cmp}", flush=True)
+    fail_if(not cmp["within"], f"exact smooth-warp match() disagrees with the default: {cmp}")
     del matcher
     torch.cuda.empty_cache()
     return res
@@ -1214,6 +1285,22 @@ def expected_launches(cfg) -> dict:
         "dw_affine_relu": sum(blocks for *_, blocks in wide_refiner_shapes(cfg)),
         "dw_block_mm": 0,
     }
+
+
+def match_diffs(warp, cert, warp_ref, cert_ref) -> dict:
+    """Two matches of the same images compared with the JAX package's
+    statistical bounds (`within`): mean |dwarp| < 2e-2, its 90th percentile
+    < 5e-2, mean |dcert| < 2e-2."""
+    import numpy as np
+
+    dw = (warp - warp_ref).abs().cpu().numpy()
+    dc = (cert - cert_ref).abs().cpu().numpy()
+    cmp = dict(mean_warp_diff=float(dw.mean()), q90_warp_diff=float(np.quantile(dw, 0.9)),
+               max_warp_diff=float(dw.max()), mean_cert_diff=float(dc.mean()),
+               max_cert_diff=float(dc.max()))
+    cmp["within"] = (cmp["mean_warp_diff"] < 2e-2 and cmp["q90_warp_diff"] < 5e-2
+                     and cmp["mean_cert_diff"] < 2e-2)
+    return cmp
 
 
 def run_match_raw(matcher, card: str) -> dict:
@@ -1267,14 +1354,9 @@ def run_match_raw(matcher, card: str) -> dict:
     host = lambda ids, h, w: np.stack([matcher.host_resize_np(ims[i], h, w) for i in ids])
     wh, ch = matcher.match_prepped(host((0, 1), hc, wc), host((2, 3), hc, wc),
                                    host((0, 1), hu, wu), host((2, 3), hu, wu))
-    dw = (warp - wh).abs().cpu().numpy()
-    dc = (cert - ch).abs().cpu().numpy()
-    res["vs_match_prepped"] = cmp = dict(
-        mean_warp_diff=float(dw.mean()), q90_warp_diff=float(np.quantile(dw, 0.9)),
-        max_warp_diff=float(dw.max()), mean_cert_diff=float(dc.mean()))
+    res["vs_match_prepped"] = cmp = match_diffs(warp, cert, wh, ch)
     print(f"[{card}] match_raw vs match_prepped on host PIL resizes: {cmp}", flush=True)
-    fail_if(cmp["mean_warp_diff"] >= 2e-2 or cmp["q90_warp_diff"] >= 5e-2
-            or cmp["mean_cert_diff"] >= 2e-2, f"match_raw disagrees with match_prepped: {cmp}")
+    fail_if(not cmp["within"], f"match_raw disagrees with match_prepped: {cmp}")
 
     gens = [torch.Generator(device=warp.device).manual_seed(s) for s in range(PAIRS)]
     m, c = matcher.sample_batched(warp, cert, 5000, gens)
@@ -1292,9 +1374,6 @@ def main() -> int:
                     help="also trace one match() with torch.profiler")
     ap.add_argument("--out", type=Path, default=ROOT / "results" / "chip_smoke",
                     help="directory for chip_smoke.json and the profile table")
-    ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout whose local-correlation kernel is timed beside this "
-                         "one on the same inputs")
     args = ap.parse_args()
 
     import torch
@@ -1330,9 +1409,8 @@ def main() -> int:
     cfg = matcher.cfg
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    parent = None if args.parent is None else parent_local_corr(args.parent.resolve())
     rows = {
-        "local_corr": check_local_corr(dev, gen, cfg, capture_local_corr(matcher, gen, dev), parent),
+        "local_corr": check_local_corr(dev, gen, cfg, capture_local_corr(matcher, gen, dev)),
         "dw_chain": check_dw_chain(dev, gen, cfg, chain_params(matcher.model)),
         "flash_attn": check_flash_attn(dev, gen, cfg),
         "dw_affine_relu": check_dw_affine_relu(dev, gen, cfg),
@@ -1345,9 +1423,13 @@ def main() -> int:
     print(f"[{card}] dw_affine_relu share of elements differing from plain: "
           f"{[r['differing_share'] for r in rows['dw_affine_relu']]}; ragged "
           f"{rows['dw_affine_relu'][0]['ragged']}", flush=True)
-    print(f"[{card}] dw_block_mm: K4 + cuDNN 1x1 ms "
-          f"{[r['k4_cudnn_1x1_ms'] for r in rows['dw_block_mm']]}; ragged max_abs_err "
-          f"{rows['dw_block_mm'][0]['ragged_max_abs_err']}", flush=True)
+    for r in rows["dw_block_mm"]:
+        print(f"[{card}] dw_block_mm {r['shape']}: {r['ms']:.4f} ms against K4 + cuDNN 1x1 "
+              f"{r['k4_cudnn_1x1_ms']:.4f} ms ({'faster' if r['ms'] < r['k4_cudnn_1x1_ms'] else 'SLOWER'})"
+              + f", bound {r['bound_ms']:.4f} ms", flush=True)
+    print(f"[{card}] dw_block_mm: sum {sum(r['ms'] for r in rows['dw_block_mm']):.4f} ms, K4 + "
+          f"cuDNN 1x1 {sum(r['k4_cudnn_1x1_ms'] for r in rows['dw_block_mm']):.4f} ms; ragged "
+          f"max_abs_err {rows['dw_block_mm'][0]['ragged_max_abs_err']}", flush=True)
     print_dw_chain(card, rows["dw_chain"])
     print_local_corr(card, rows["local_corr"])
 
@@ -1400,6 +1482,7 @@ def main() -> int:
     report["tiny"] = run_tiny(dev, gen, card, out_dir if args.profile else None)
     rows["windowed_sample"] = check_windowed_sample(dev, gen, cfg)
     print_rows(card, rows, "windowed_sample")
+    print_windowed(card, rows["windowed_sample"])
     report["smooth_warp"] = run_smooth_warp(dev, gen, card)
 
     # each kernel's launches come from the run of the path it serves

@@ -7,8 +7,10 @@ dw5x5_affine_relu_mm``: ``bf16(relu(dw5x5(x) * scale + shift))`` followed by
 the C x C 1x1 mix plus bias, rounded to bf16, for C = D <= 160. As in the
 JAX package no model path calls it (the JAX refiner measured and rejected
 it for scale 2); the tests and `chip_smoke.py` reach it. Bound and design:
-see the note at the top of the CUDA source (bytes; the depthwise part per
-16-channel chunk into a shared-memory y tile, the mix on the tensor cores).
+see the note at the top of the CUDA source (bytes; persistent blocks walk
+8 x 32 pixel tiles, staging M^T from `m` once, the halo 16 channels at a
+time by cp.async, the mix on the tensor cores, z out as 16-byte vectors).
+`tile_plan` mirrors the kernel's tiling and shared memory.
 
 Its backward is the plain version's (`runtime.PlainBackward`), as the JAX
 `custom_vjp` is its reference's VJP.
@@ -17,14 +19,53 @@ Its backward is the plain version's (`runtime.PlainBackward`), as the JAX
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from roma_torch.kernels import runtime
-from roma_torch.kernels.dw_chain import block_plain_nchw
+from roma_torch.kernels.dw_chain import block_plain_nchw, padded_channels
 
 NAME = "dw_block_mm"
 MAX_CHANNELS = 160
+TILE_H, TILE_W = 8, 32   # a tile's rows (one a warp in the mix) and columns
+PATCHES = TILE_H * TILE_W // 16  # 4 x 4 depthwise patches of a tile
+THREADS = 256
+CHUNK = THREADS // PATCHES  # channels of the halo staged at a time: an item a thread
+HALO_UNITS = 6           # 16-byte units of a halo row: columns x0 - 8 .. x0 + 39
+TAPS = 28                # fp32 per channel in shared memory: 25 taps, scale, shift, 0
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """The kernel's tiling of a (B, C, H, W) block: `tiles` = (across W,
+    down H, B) tiles of TILE_H x TILE_W pixels, walked by persistent blocks;
+    the halo in `chunks` of CHUNK channels; `smem_bytes` of shared memory a
+    block."""
+
+    cp: int
+    tiles: tuple[int, int, int]
+    chunks: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(B: int, C: int, H: int, W: int) -> TilePlan:
+    """Raises for C outside 1..160. The shared memory, in the kernel's order:
+    two halo buffers (CHUNK channel planes of (TILE_H + 4) x HALO_UNITS
+    16-byte units, plus one unit so that planes start in distinct bank
+    groups), M^T and the y tile (rows of Cp + 8 bf16), one 16 x TILE_W bf16
+    z tile a warp, the taps and the bias."""
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"{NAME}: needs 1 <= C <= {MAX_CHANNELS}, got {C}")
+    cp = padded_channels(C)
+    plane = (TILE_H + 4) * HALO_UNITS + 1
+    ld = cp + 8
+    smem = (2 * CHUNK * plane * 16 + 2 * cp * ld + 2 * TILE_H * TILE_W * ld
+            + 2 * (THREADS // 32) * 16 * TILE_W + 4 * C * TAPS + 4 * cp)
+    tiles = (-(-W // TILE_W), -(-H // TILE_H), B)
+    return TilePlan(cp, tiles, -(-C // CHUNK), smem)
 
 
 def dw5x5_affine_relu_mm_nchw(x, w, scale, shift, m, bias):
@@ -37,26 +78,28 @@ def dw5x5_affine_relu_mm_nchw(x, w, scale, shift, m, bias):
                                        x, w, scale, shift, m, bias)
 
 
+@functools.cache
+def _kernel():
+    lib = runtime.load(NAME)
+    fn = lib.roma_dw_block_mm
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def dw5x5_affine_relu_mm_cuda_nchw(x, w, scale, shift, m, bias):
     B, C, H, W = x.shape
-    if not 1 <= C <= MAX_CHANNELS:
-        raise ValueError(f"{NAME}: needs 1 <= C <= {MAX_CHANNELS}, got {C}")
+    plan = tile_plan(B, C, H, W)  # raises for C outside 1..160
     dev = x.device
     runtime.require(NAME, x, (B, C, H, W), torch.bfloat16, dev)
     runtime.require(NAME, w, (5, 5, C), torch.bfloat16, dev)
-    runtime.require(NAME, m, (C, C), torch.bfloat16, dev, contiguous=False)
+    runtime.require(NAME, m, (C, C), torch.bfloat16, dev)
     for t in (scale, shift, bias):
         runtime.require(NAME, t, (C,), torch.float32, dev)
-    cp = -(-C // 16) * 16
-    mt = torch.zeros((cp, cp), dtype=torch.bfloat16, device=dev)
-    mt[:C, :C] = m.T
     z = torch.empty_like(x)
-    lib = runtime.load(NAME)
-    fn = lib.roma_dw_block_mm
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fn = _kernel()
     rc = fn(x.data_ptr(), z.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            mt.data_ptr(), bias.data_ptr(), B, C, H, W, runtime.stream_handle(x))
+            m.data_ptr(), bias.data_ptr(), B, C, H, W, plan.smem_bytes, runtime.stream_handle(x))
     runtime.check(lib, NAME, rc)
     return z
 

@@ -2,63 +2,98 @@
 the public `grid_sample_smooth`.
 
 Replaces the TPU kernel ``roma_tpu/ops/pallas/windowed_sample.py::
-grid_sample_smooth``. The plan (per-tile window origins, whole-batch `ok`)
-and the plain version live in ``roma_torch/ops/windowed_sample.py``. Bound
-and design: see the note at the top of the CUDA source (bytes; one block
-per 8 x 128 output tile, the 24 x 136 source window in shared memory).
+grid_sample_smooth``, its plan and its exact-mode ``lax.cond``. The kernel
+derives each tile's plan itself from the unpadded grid, in one launch a
+call; the plan, `ok` and the plain versions of both modes live in
+``roma_torch/ops/windowed_sample.py`` and serve the CPU path. Bound and
+design: see the note at the top of the CUDA source (bytes; one block per
+8 x 128 output tile, the rows its pixels read of the 24 x 136 source window
+staged by cp.async).
 
 Modes, as in the JAX package:
-- "fast": the windowed gather, always (window-clamped on rough tiles);
-- "exact" (or True): the windowed gather when `ok` holds for the whole
-  batch, else plain `grid_sample`. Deciding reads `ok` on the host, one
-  device-to-host sync per call, the counterpart of the JAX `lax.cond`.
-Maps with more than 16 channels take plain `grid_sample` in either mode.
+- "fast": the windowed gather, window-clamped on rough tiles;
+- "exact" (or True): bilinear sampling for any flow. A pixel takes its taps
+  from its tile's window where the window holds them, from the map
+  elsewhere: the same function as JAX's choice between the windowed kernel
+  and `grid_sample`, with no host read of `ok` (no device-to-host sync).
+`with_ok=True` also returns the whole-batch `ok` as a () bool tensor on the
+map's device, reduced by the kernel. Maps with more than 16 channels take
+plain `grid_sample` in either mode (the kernel then reduces only `ok`, when
+asked for it). bf16 and float32 maps, as the JAX kernel takes the map's
+dtype. The kernel reads channels-last maps (the refiner's layout, as the
+JAX kernel's maps are (B, H, W, C)); `grid_sample_smooth_nchw` converts any
+other layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from roma_torch.kernels import runtime
 from roma_torch.ops.grid_sample import grid_sample_nchw
-from roma_torch.ops.windowed_sample import (Plan, pad_grid, plan, smoothness_ok,
-                                            windowed_sample_plain)
+from roma_torch.ops.windowed_sample import (TH, TW, frame_width, pad_grid, plan,
+                                            windowed_exact_plain, windowed_sample_plain)
 
 NAME = "windowed_sample"
 MAX_CHANNELS = 16
 MODES = ("exact", "fast")
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
-def windowed_sample(feat: torch.Tensor, grid: torch.Tensor, valid_hw, p: Plan) -> torch.Tensor:
-    """feat (B,C,H,W), tile-padded grid (B,Ho,Wo,2) and its plan ->
-    (B,C,Ho0,Wo0). CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
-    if feat.device.type == "cpu":
-        return windowed_sample_plain(feat, grid, valid_hw, p)
-    return windowed_sample_cuda(feat, grid, valid_hw, p)
+@functools.cache
+def _kernel():
+    lib = runtime.load(NAME)
+    fn = lib.roma_windowed_sample
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
-def windowed_sample_cuda(feat: torch.Tensor, grid: torch.Tensor, valid_hw, p: Plan) -> torch.Tensor:
-    B, C, H, W = feat.shape
-    Ho, Wo = grid.shape[1:3]
-    Ho0, Wo0 = valid_hw
-    if not 1 <= C <= MAX_CHANNELS:
-        raise ValueError(f"{NAME}: needs 1 <= C <= {MAX_CHANNELS}, got {C}")
-    dev = feat.device
-    runtime.require(NAME, feat, (B, C, H, W), torch.bfloat16, dev)
+def origins_shape(grid: torch.Tensor) -> tuple[int, int, int, int]:
+    """(B, tile rows, tile columns, 2) of the kernel's origins buffer."""
+    B, Ho, Wo = grid.shape[:3]
+    return B, -(-Ho // TH), -(-Wo // TW), 2
+
+
+def windowed_sample_cuda(feat: torch.Tensor | None, grid: torch.Tensor, exact: bool = False,
+                         ok: torch.Tensor | None = None, origins: torch.Tensor | None = None,
+                         hw: tuple[int, int] | None = None) -> torch.Tensor | None:
+    """One launch: feat (B,C,H,W) bf16 or float32, channels last, sampled
+    at the unpadded grid (B,Ho,Wo,2) -> (B,C,Ho,Wo) contiguous
+    in feat's dtype ("fast", or "exact" with `exact`). `ok`: a () int32
+    tensor set to 1, cleared by the kernel where a tile is not
+    window-smooth; `origins` (`origins_shape`) int32 receives each tile's
+    (ybase, j0_abs). With feat None only those two are computed, for a map
+    of size `hw`."""
+    dev = grid.device
+    B, Ho, Wo = grid.shape[:3]
     runtime.require(NAME, grid, (B, Ho, Wo, 2), torch.float32, dev)
     if grid.data_ptr() % 8:
         raise ValueError(f"{NAME}: the grid must be 8-byte aligned")
-    origin = torch.stack([p.ybase, p.j0_abs], dim=-1).reshape(B, -1, 2).contiguous()
-    out = torch.empty((B, C, Ho0, Wo0), dtype=torch.bfloat16, device=dev)
-    lib = runtime.load(NAME)
-    fn = lib.roma_windowed_sample
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(feat.data_ptr(), grid.data_ptr(), origin.data_ptr(), out.data_ptr(),
-            B, C, H, W, Ho, Wo, Ho0, Wo0, p.Wp, runtime.stream_handle(feat))
+    if ok is not None:
+        runtime.require(NAME, ok, (), torch.int32, dev)
+    if origins is not None:
+        runtime.require(NAME, origins, origins_shape(grid), torch.int32, dev)
+    if feat is None:
+        (H, W), C, dtype, out = hw, 0, torch.bfloat16, None
+    else:
+        _, C, H, W = feat.shape
+        if not 1 <= C <= MAX_CHANNELS:
+            raise ValueError(f"{NAME}: needs 1 <= C <= {MAX_CHANNELS}, got {C}")
+        if feat.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{NAME}: the map must be bfloat16 or float32, got {feat.dtype}")
+        dtype = feat.dtype
+        runtime.require(NAME, feat, (B, C, H, W), dtype, dev, contiguous=False)
+        if not feat.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"{NAME}: the map must be channels last")
+        out = torch.empty((B, C, Ho, Wo), dtype=dtype, device=dev)
+    lib, fn = _kernel()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = fn(ptr(feat), grid.data_ptr(), ptr(out), ptr(ok), ptr(origins), B, C, H, W, Ho, Wo,
+            frame_width(W), _DTYPE_CODES[dtype], int(exact), runtime.stream_handle(grid))
     runtime.check(lib, NAME, rc)
     return out
 
@@ -67,21 +102,33 @@ def grid_sample_smooth_nchw(feat: torch.Tensor, grid: torch.Tensor, mode: str = 
                             with_ok: bool = False):
     """grid_sample (zeros padding) of feat (B,C,H,W) at grid (B,Ho,Wo,2) ->
     (B,C,Ho,Wo) in feat's dtype, through the windowed gather per `mode`.
-    `with_ok=True` also returns the whole-batch `ok` flag (a () bool tensor)."""
+    `with_ok=True` also returns the whole-batch `ok` flag (a () bool tensor).
+    CPU tensors take the plain versions; CUDA tensors launch the kernel once
+    (C <= 16, or `with_ok`) and never wait for it."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    vhw = tuple(grid.shape[1:3])
-    if feat.shape[1] > MAX_CHANNELS:
-        out = grid_sample_nchw(feat, grid)
-        return (out, smoothness_ok(feat, pad_grid(grid.float()), vhw)) if with_ok else out
-    gp = pad_grid(grid.float())
-    feat = feat.contiguous()
-    p = plan(feat, gp, vhw)
-    if mode == "fast" or bool(p.ok):
-        out = windowed_sample(feat, gp, vhw, p)
+    narrow = feat.shape[1] <= MAX_CHANNELS
+    if feat.device.type == "cpu":
+        vhw = tuple(grid.shape[1:3])
+        gp = pad_grid(grid.float())
+        p = plan(feat, gp, vhw) if narrow or with_ok else None
+        if not narrow:
+            out = grid_sample_nchw(feat, grid)
+        elif mode == "fast":
+            out = windowed_sample_plain(feat, gp, vhw, p)
+        else:
+            out = windowed_exact_plain(feat, gp, vhw, p)
+        return (out, p.ok) if with_ok else out
+    grid = grid.float().contiguous()
+    ok = torch.ones((), dtype=torch.int32, device=feat.device) if with_ok else None
+    if narrow:
+        feat = feat.contiguous(memory_format=torch.channels_last)
+        out = windowed_sample_cuda(feat, grid, mode == "exact", ok)
     else:
         out = grid_sample_nchw(feat, grid)
-    return (out, p.ok) if with_ok else out
+        if with_ok:
+            windowed_sample_cuda(None, grid, ok=ok, hw=tuple(feat.shape[-2:]))
+    return (out, ok.bool()) if with_ok else out
 
 
 def grid_sample_smooth(feat: torch.Tensor, grid: torch.Tensor, mode: str = "exact",

@@ -10,7 +10,13 @@ mode's window-clamped result), and `ok` says whether no real pixel of the
 batch needed that clamp and every base is in bounds (then the result is
 plain bilinear sampling). The geometry is the JAX package's
 (`ops/pallas/windowed_sample.py::_plan`): fast mode's clamped values depend
-on it.
+on it. "exact" mode (`windowed_exact_plain`) takes a pixel's taps from its
+tile's window where the window holds them and from the map elsewhere, which
+is bilinear sampling for any flow.
+
+These functions are the spec of the CUDA kernel
+(``roma_torch/csrc/windowed_sample.cu``), which derives each tile's plan
+itself, and the CPU path of ``roma_torch/kernels/windowed_sample.py``.
 
 Features are NCHW (B, C, H, W), as the port's refiner holds them; grids are
 (B, Ho, Wo, 2) with Ho, Wo multiples of (8, 128) (edge-padded by the caller);
@@ -37,6 +43,7 @@ class Plan(NamedTuple):
     j0_abs: torch.Tensor  # (B, n_ty, n_tx) int32: frame column of the window's left
     y0rel: torch.Tensor   # (B, Ho, Wo) int32 in [0, 22]: base row - ybase
     e: torch.Tensor       # (B, Ho, Wo) int32 in [0, 6]: base column - j0_abs - local column
+    inwin: torch.Tensor   # (B, Ho, Wo) bool: y0rel and e needed no clamp
     wx: torch.Tensor      # (B, Ho, Wo) float32 bilinear weights of the unclamped coordinate
     wy: torch.Tensor
     Wp: int               # frame width
@@ -105,13 +112,14 @@ def plan(feat: torch.Tensor, grid: torch.Tensor, valid_hw=None) -> Plan:
     ybase = (y0min // 8) * 8
     y0rel = y0t - ybase[:, :, None, :, None]
     e = d - (j0_abs - txo)[:, :, None, :, None]
-    ok = (torch.where(realt, y0rel, 0).le(WIN_ROWS - 2).all()
-          & torch.where(realt, (e >= 0) & (e <= E - 2), True).all()
+    inwin = (y0rel >= 0) & (y0rel <= WIN_ROWS - 2) & (e >= 0) & (e <= E - 2)
+    ok = (torch.where(realt, inwin, True).all()
           & torch.where(real, inb, True).all())
     y0rel = y0rel.clamp(0, WIN_ROWS - 2).reshape(B, Ho, Wo)
     e = e.clamp(0, E - 2).reshape(B, Ho, Wo)
     i32 = torch.int32
-    return Plan(ybase.to(i32), j0_abs.to(i32), y0rel.to(i32), e.to(i32), wx, wy, Wp, ok)
+    return Plan(ybase.to(i32), j0_abs.to(i32), y0rel.to(i32), e.to(i32),
+                inwin.reshape(B, Ho, Wo), wx, wy, Wp, ok)
 
 
 def smoothness_ok(feat: torch.Tensor, grid: torch.Tensor, valid_hw=None) -> torch.Tensor:
@@ -121,20 +129,47 @@ def smoothness_ok(feat: torch.Tensor, grid: torch.Tensor, valid_hw=None) -> torc
 
 def windowed_sample_plain(feat: torch.Tensor, grid: torch.Tensor, valid_hw=None,
                           p: Plan | None = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: feat (B, C, H, W), tile-padded
-    grid (B, Ho, Wo, 2) -> (B, C, Ho0, Wo0) in feat's dtype. Each pixel reads
-    the 2 x 2 taps at frame (ybase + y0rel, j0_abs + e + local column) with
-    the weights of its unclamped coordinate; frame positions outside the
-    image are zeros. float32 arithmetic."""
-    B, C, H, W = feat.shape
-    Ho, Wo = grid.shape[1:3]
-    Ho0, Wo0 = valid_hw if valid_hw is not None else (Ho, Wo)
+    """"fast" mode in plain PyTorch: feat (B, C, H, W), tile-padded grid
+    (B, Ho, Wo, 2) -> (B, C, Ho0, Wo0) in feat's dtype. Each pixel reads the
+    2 x 2 taps at frame (ybase + y0rel, j0_abs + e + local column) with the
+    weights of its unclamped coordinate; frame positions outside the image
+    are zeros. float32 arithmetic."""
     p = plan(feat, grid, valid_hw) if p is None else p
-    dev = feat.device
+    row, col = _window_taps(p, grid.shape[2])
+    return _bilinear_taps(feat, row, col, p, valid_hw)
+
+
+def windowed_exact_plain(feat: torch.Tensor, grid: torch.Tensor, valid_hw=None,
+                         p: Plan | None = None) -> torch.Tensor:
+    """"exact" mode in plain PyTorch, arguments as `windowed_sample_plain`:
+    a pixel whose offsets lie in its tile's window (`inwin`) reads its taps
+    there, any other pixel at its own base in the image. Both are the
+    zeros-padded bilinear taps (a base clamped to the frame's edge has all
+    its taps outside the image, as the clamped position has), so this is
+    bilinear sampling for any flow."""
+    H, W = feat.shape[-2:]
+    p = plan(feat, grid, valid_hw) if p is None else p
+    row, col = _window_taps(p, grid.shape[2])
+    x0r, y0r, _, _ = base_coords(grid, H, W)
+    row = torch.where(p.inwin, row, y0r)
+    col = torch.where(p.inwin, col, x0r)
+    return _bilinear_taps(feat, row, col, p, valid_hw)
+
+
+def _window_taps(p: Plan, Wo: int):
+    """Image row and column of each pixel's top-left tap in its window."""
     rep = lambda t: t.repeat_interleave(TH, 1).repeat_interleave(TW, 2)
-    lw = (torch.arange(Wo, device=dev) % TW)[None, None, :]
-    row = rep(p.ybase) + p.y0rel - PAD          # image row of the top taps
-    col = rep(p.j0_abs) + p.e + lw - PADX       # image column of the left taps
+    lw = (torch.arange(Wo, device=p.e.device) % TW)[None, None, :]
+    return rep(p.ybase) + p.y0rel - PAD, rep(p.j0_abs) + p.e + lw - PADX
+
+
+def _bilinear_taps(feat, row, col, p: Plan, valid_hw):
+    """sum of the 2 x 2 taps from (row, col), zeros outside the image, with
+    the plan's weights, in the order the kernel adds them."""
+    B, C, H, W = feat.shape
+    Ho, Wo = row.shape[1:]
+    Ho0, Wo0 = valid_hw if valid_hw is not None else (Ho, Wo)
+    dev = feat.device
     src = feat.float().reshape(B, C, H * W)
     out = torch.zeros((B, C, Ho * Wo), dtype=torch.float32, device=dev)
     for dy, dx, w in ((0, 0, (1 - p.wy) * (1 - p.wx)), (0, 1, (1 - p.wy) * p.wx),

@@ -360,3 +360,143 @@ def test_dw_chain_kernel_rejects_more_than_64_channels(C):
     with pytest.raises(ValueError, match="1 <= C <= 64"):
         dw_chain.chain_cuda_nchw(x, ws, vec, vec, ms, vec)
     assert LAUNCHES["dw_chain"] == n0
+
+
+# K5's schedule (the CUDA kernel's index arithmetic, mirrored): the three
+# chip shapes and the two ragged ones chip_smoke.py checks
+K5_SHAPES = [(4, 144, 280, 280), (4, 144, 432, 432), (4, 24, 560, 560), (2, 37, 45, 61),
+             (1, 160, 33, 70)]
+
+
+def _k5_tile_origin(plan, tile):
+    tw, th, _ = plan.tiles
+    rest = tile // tw
+    return (tile % tw) * k5.TILE_W, (rest % th) * k5.TILE_H, rest // th
+
+
+@pytest.mark.parametrize("B,C,H,W", K5_SHAPES)
+def test_dw_block_mm_schedule_covers_each_pixel_once(B, C, H, W):
+    """The persistent blocks' walk (tile = block, block + grid, ...) takes
+    every tile once for any grid size; the tiles cover every pixel once;
+    within a tile the depthwise items (a channel and a 4 x 4 patch a thread,
+    channels fastest; a shorter last chunk packed onto the first threads)
+    cover every (channel, pixel) of each chunk once, and the mix's stores
+    (a warp a tile row, 16-channel output tiles, 4 units of 8 pixels) every
+    (channel, pixel) of the tile once; each
+    patch's 8 halo columns lie in its two 16-byte units; a block fits the
+    H100's 227 KB of shared memory."""
+    plan = k5.tile_plan(B, C, H, W)
+    tw, th, nb = plan.tiles
+    n = tw * th * nb
+    assert nb == B and plan.cp == dw_chain.padded_channels(C)
+    assert k5.CHUNK * k5.PATCHES == k5.THREADS and plan.chunks == -(-C // k5.CHUNK)
+    assert plan.smem_bytes <= k4.SMEM_MAX
+    for grid in (132, 264, 396, n):
+        grid = min(grid, n)
+        walked = sorted(t for blk in range(grid) for t in range(blk, n, grid))
+        assert walked == list(range(n))
+    cover = np.zeros((B, H, W), np.int64)
+    for t in range(n):
+        x0, y0, b = _k5_tile_origin(plan, t)
+        cover[b, y0:y0 + k5.TILE_H, x0:x0 + k5.TILE_W] += 1
+    assert (cover == 1).all()
+    tid = np.arange(k5.THREADS)
+    tail = C - (plan.chunks - 1) * k5.CHUNK
+    for nc in {k5.CHUNK, tail}:
+        ch, pq = tid % nc, tid // nc
+        busy = pq < k5.PATCHES
+        py, px = pq[busy] & 1, pq[busy] >> 1
+        dw = np.zeros((nc, k5.TILE_H, k5.TILE_W), np.int64)
+        for oy in range(4):
+            for j in range(4):
+                np.add.at(dw, (ch[busy], 4 * py + oy, 4 * px + j), 1)
+        assert (dw == 1).all()
+        if nc == k5.CHUNK:
+            first = 4 * px + 6  # staged column of a patch's first tap (column x0 - 8 is 0)
+            ub, off = first >> 3, first & 7
+            assert set(off) == {2, 6}  # the kernel's two selections of 4 bf16 pairs
+            assert ((first + 8 <= (ub + 2) * 8) & (ub + 2 <= k5.HALO_UNITS)).all()
+    mix = np.zeros((plan.cp, k5.TILE_H, k5.TILE_W), np.int64)
+    lane = np.arange(32)
+    for warp in range(k5.THREADS // 32):
+        for mt in range(plan.cp // 16):
+            for u in (lane, lane + 32):
+                np.add.at(mix, (mt * 16 + (u >> 2), warp, 8 * (u & 3) + np.arange(8)[:, None]), 1)
+    assert (mix == 1).all()
+    # the warp's z tile keeps unit q of channel row r at q ^ (r / 2 % 4): a
+    # permutation of the tile's 64 units
+    r, q = np.meshgrid(np.arange(16), np.arange(4), indexing="ij")
+    slot = r * 4 + (q ^ (r >> 1 & 3))
+    assert sorted(slot.ravel()) == list(range(64))
+
+
+def _emulate_block_mm(x, w, scale, shift, m, bias):
+    """One block the way the K5 kernel cuts it, in plain PyTorch: per 8 x 32
+    tile and per 16-channel chunk the staged bf16 halo (rows y0 - 2 ..
+    y0 + 9, columns x0 - 8 .. x0 + 39, zeros outside the plane), the
+    depthwise sums from its columns 6 .., y rounded to bf16 into a y tile
+    padded with zero channels to Cp; then the mix from M^T (read from `m`,
+    zero-padded to Cp x Cp, as the kernel stages it), accumulated in
+    float32 one 16-channel k-step after another, plus bias,
+    rounded to bf16; only the tile's in-plane pixels written. Returns z and
+    the count of writes per pixel."""
+    B, C, H, W = x.shape
+    plan = k5.tile_plan(B, C, H, W)
+    cp = plan.cp
+    mt = torch.zeros((cp, cp))
+    mt[:C, :C] = m.float().T
+    TH, TW = k5.TILE_H, k5.TILE_W
+    out = torch.zeros((B, C, H, W), dtype=torch.bfloat16)
+    count = torch.zeros((B, H, W), dtype=torch.int64)
+    tw, th, nb = plan.tiles
+    for t in range(tw * th * nb):
+        x0, y0, b = _k5_tile_origin(plan, t)
+        y = torch.zeros((cp, TH, TW))
+        for k in range(plan.chunks):
+            c0, c1 = k5.CHUNK * k, min(k5.CHUNK * (k + 1), C)
+            stage = torch.zeros((c1 - c0, TH + 4, 48))
+            ya, yb = max(y0 - 2, 0), min(y0 + TH + 2, H)
+            xa, xb = max(x0 - 8, 0), min(x0 + 40, W)
+            if yb > ya and xb > xa:
+                stage[:, ya - y0 + 2:yb - y0 + 2, xa - x0 + 8:xb - x0 + 8] = \
+                    x[b, c0:c1, ya:yb, xa:xb].float()
+            acc = torch.nn.functional.conv2d(stage[None, :, :, 6:6 + TW + 4],
+                                             w[:, :, c0:c1].float().permute(2, 0, 1)[:, None],
+                                             groups=c1 - c0)[0]
+            y[c0:c1] = torch.relu(acc * scale[c0:c1, None, None] + shift[c0:c1, None, None]) \
+                .to(torch.bfloat16).float()
+        z = torch.zeros((cp, TH, TW))
+        for ks in range(cp // 16):
+            z = z + torch.einsum("dc,chw->dhw", mt[:, 16 * ks:16 * ks + 16], y[16 * ks:16 * ks + 16])
+        z = z[:C] + bias[:, None, None]
+        h1, w1 = min(TH, H - y0), min(TW, W - x0)
+        out[b, :, y0:y0 + h1, x0:x0 + w1] = z[:, :h1, :w1].to(torch.bfloat16)
+        count[b, y0:y0 + h1, x0:x0 + w1] += 1
+    return out, count
+
+
+@pytest.mark.parametrize("B,C,H,W", [(1, 37, 13, 40), (2, 24, 9, 64), (1, 160, 8, 33),
+                                     (1, 16, 17, 31), (1, 100, 9, 35)])
+def test_dw_block_mm_chunk_emulation_matches_plain(rng, B, C, H, W):
+    """The K5 kernel's schedule (tiles, 16-channel halo chunks, M^T
+    zero-padded to Cp, the mix accumulated k-step by k-step) emulated in plain PyTorch equals
+    `block_plain_nchw` within one bf16 ulp elementwise (only the float32
+    sum order differs before each rounding), and writes every pixel once."""
+    x = _bf(rng.standard_normal((B, C, H, W)))
+    w = _bf(rng.standard_normal((5, 5, C)) * 0.2)
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    sh = torch.from_numpy((rng.standard_normal(C) * 0.1).astype(np.float32))
+    m = _bf(rng.standard_normal((C, C)) * 0.2)
+    bias = torch.from_numpy((rng.standard_normal(C) * 0.1).astype(np.float32))
+    got, count = _emulate_block_mm(x, w, sc, sh, m, bias)
+    assert (count == 1).all()
+    _one_ulp(got.float().numpy(), block_plain_nchw(x, w, sc, sh, m, bias).float().numpy())
+
+
+@pytest.mark.parametrize("C", [0, 161])
+def test_dw_block_mm_kernel_rejects_channels_outside_1_to_160(C):
+    """A request the kernel does not take raises before anything is built
+    or launched (here on the CPU, through the wrapper's plan)."""
+    with pytest.raises(ValueError, match="1 <= C <= 160"):
+        k5.dw5x5_affine_relu_mm_cuda_nchw(torch.zeros((1, C, 4, 4), dtype=torch.bfloat16),
+                                          *(torch.zeros(1),) * 5)

@@ -1,9 +1,11 @@
 """The windowed warp gather in the port against the JAX package on the CPU:
 the tile plan, `smoothness_ok` and the kernel's plain version against JAX
-`_plan`, `smoothness_ok` and `_windowed_path(interpret=True)`; the public
-`grid_sample_smooth` in both modes; the ConvRefiner and the debug-size
-full-RoMa slice with `smooth_warp_gather`, against JAX with the windowed
-kernel forced into interpret mode. Interpret-mode calls take ~10-15 s each
+`_plan`, `smoothness_ok` and `_windowed_path(interpret=True)`; the CUDA
+kernel's own per-tile plan (mirrored in plain PyTorch) against both; the
+plain exact mode against JAX `grid_sample`; the public `grid_sample_smooth`
+in both modes; the ConvRefiner and the debug-size full-RoMa slice with
+`smooth_warp_gather`, against JAX with the windowed kernel forced into
+interpret mode. Interpret-mode calls take ~10-15 s each
 on the CPU and grow with C, so each case makes one, at C = 2, and shares it
 through module fixtures.
 """
@@ -19,7 +21,8 @@ import jax.numpy as jnp
 
 from roma_tpu.ops.grid_sample import grid_sample as j_grid_sample
 from roma_tpu.ops.pallas import windowed_sample as jws
-from roma_torch.kernels.windowed_sample import grid_sample_smooth
+from roma_torch.kernels import LAUNCHES
+from roma_torch.kernels.windowed_sample import grid_sample_smooth, windowed_sample_cuda
 from roma_torch.ops import windowed_sample as tws
 from roma_torch.ops.grid_sample import grid_sample as t_grid_sample
 from test_pallas_kernels import _fast_mode_oracle, _smooth_sine_grid
@@ -47,6 +50,12 @@ CASES = {
 }
 
 
+def _edge_pad(grid):
+    """The JAX wrapper's edge padding of a grid to (8, 128) tile multiples."""
+    return np.array(jnp.pad(grid, ((0, 0), (0, (-grid.shape[1]) % 8),
+                                   (0, (-grid.shape[2]) % 128), (0, 0)), mode="edge"))
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
     B, H, W, C, rough, Wo0 = CASES[request.param]
@@ -56,7 +65,7 @@ def case(request):
     if rough:
         grid = _rough(rng, grid)
     grid = np.ascontiguousarray(grid[:, :, :Wo0])
-    gp = np.array(jnp.pad(grid, ((0, 0), (0, 0), (0, (-Wo0) % 128), (0, 0)), mode="edge"))
+    gp = _edge_pad(grid)
     vhw = (H, Wo0)
     jplan = jws._plan(jnp.asarray(feat), jnp.asarray(gp), vhw)
     jout = np.asarray(jws._windowed_path(jnp.asarray(feat), jnp.asarray(gp), interpret=True,
@@ -105,14 +114,127 @@ def test_plain_matches_jax_interpret(case):
 @pytest.mark.parametrize("mode", ["exact", "fast"])
 def test_grid_sample_smooth_modes(case, mode):
     """The public wrapper (JAX layout): "exact" equals grid_sample on both
-    batches (windowed when smooth, plain otherwise); "fast" equals the
-    window-clamped result; `with_ok` returns the plan's flag."""
+    batches (window taps where the window holds them, the map's elsewhere);
+    "fast" equals the window-clamped result; `with_ok` returns the plan's
+    flag."""
     feat, grid = torch.from_numpy(case["feat"]), torch.from_numpy(case["grid"])
     got, ok = grid_sample_smooth(feat, grid, mode=mode, with_ok=True)
     assert bool(ok) == (not case["rough"])
     ref = case["jout"] if mode == "fast" else np.asarray(t_grid_sample(feat, grid))
     np.testing.assert_allclose(got.numpy(), ref, atol=SAMPLE_TOL, rtol=0)
     assert torch.equal(grid_sample_smooth(feat, grid, mode=mode), got)
+
+
+def _kernel_plan(feat_hw, grid):
+    """The CUDA kernel's per-block plan, tile by tile in plain PyTorch: the
+    tile's grid values read from the unpadded grid with the index clamped to
+    the last row and column (no padded copy), the bases with the plan's
+    float32 arithmetic, the minima of the frame row and of the disparity
+    over the tile's real pixels, the plan's clamps, and the tile's validity.
+    Returns ybase, j0_abs (B, tile rows, tile columns) and the whole-batch
+    `ok`."""
+    H, W = feat_hw
+    B, Ho, Wo = grid.shape[:3]
+    Wp = tws.frame_width(W)
+    n_ty, n_tx = -(-Ho // tws.TH), -(-Wo // tws.TW)
+    ybase = torch.zeros((B, n_ty, n_tx), dtype=torch.int32)
+    j0_abs = torch.zeros_like(ybase)
+    ok = True
+    for b in range(B):
+        for ty in range(n_ty):
+            for tx in range(n_tx):
+                h = ty * tws.TH + torch.arange(tws.TH)
+                w = tx * tws.TW + torch.arange(tws.TW)
+                g = grid[b][h.clamp_max(Ho - 1)][:, w.clamp_max(Wo - 1)]
+                x0, y0, _, _ = tws.base_coords(g, H, W)
+                real = (h < Ho)[:, None] & (w < Wo)[None, :]
+                y0i = (y0 + tws.PAD).clamp(0, H + 2 * tws.PAD - 2)
+                d = (x0 + tws.PADX).clamp(0, Wp - 2) - w[None, :]
+                jt = int((d[real].min() + tx * tws.TW).clamp(0, Wp - tws.NXB * 128))
+                yt = int(y0i[real].min().clamp(0, H + 2 * tws.PAD - 2)) // 8 * 8
+                yrel, e = y0i - yt, d - (jt - tx * tws.TW)
+                inb = (x0 >= -1) & (x0 < W) & (y0 >= -1) & (y0 < H)
+                valid = ((yrel <= tws.WIN_ROWS - 2) & (e >= 0) & (e <= tws.E - 2) & inb)[real]
+                ok = ok and bool(valid.all())
+                ybase[b, ty, tx], j0_abs[b, ty, tx] = yt, jt
+    return ybase, j0_abs, ok
+
+
+def _plan_case(name):
+    """Two cases beyond CASES for the plan alone: a last tile column with
+    two real columns (Wo0 = 130), and `ok` false through one pixel just
+    above the image (its base row is -2, inside its tile's window)."""
+    rng = np.random.default_rng(2)
+    if name == "two_real_columns":
+        B, H, W = 2, 16, 130
+        feat = rng.standard_normal((B, H, W, 2)).astype(np.float32)
+        grid = np.array(_smooth_sine_grid(B, H, W), np.float32)
+    else:
+        B, H, W = 1, 16, 256
+        feat = rng.standard_normal((B, H, W, 2)).astype(np.float32)
+        grid = np.array(_smooth_sine_grid(B, H, W), np.float32)
+        grid[0, 0, 5, 1] = -1.0 - 2.0 / H  # pixel row -1.5: base row -2
+    return feat, grid
+
+
+@pytest.mark.parametrize("name", ["two_real_columns", "oob_only"])
+def test_kernel_plan_matches_plan_on_edge_cases(name):
+    """The kernel's per-tile plan == `plan()` == JAX `_plan` (origins, `ok`)
+    on the unpadded grid; in the second case only the out-of-bounds pixel
+    clears `ok`: every real pixel's offsets lie in its window."""
+    feat, grid = _plan_case(name)
+    H, W = feat.shape[1:3]
+    vhw = grid.shape[1:3]
+    ybase, j0_abs, ok = _kernel_plan((H, W), torch.from_numpy(grid))
+    gp = _edge_pad(grid)
+    p = tws.plan(_nchw(feat), torch.from_numpy(gp), vhw)
+    tile = np.asarray(jws._plan(jnp.asarray(feat), jnp.asarray(gp), vhw)[0]).reshape(
+        *p.ybase.shape, 3)
+    assert torch.equal(ybase, p.ybase) and torch.equal(j0_abs, p.j0_abs)
+    np.testing.assert_array_equal(ybase.numpy(), tile[..., 0] * 8)
+    np.testing.assert_array_equal(j0_abs.numpy(), tile[..., 1] * 128 + tile[..., 2])
+    jok = bool(jws._plan(jnp.asarray(feat), jnp.asarray(gp), vhw)[6])
+    assert ok == bool(p.ok) == jok == (name == "two_real_columns")
+    assert bool(p.inwin[:, :vhw[0], :vhw[1]].all())
+
+
+def test_kernel_plan_matches_plan(case):
+    """On CASES (a ragged smooth batch, a rough one with pixels far out of
+    range), the kernel's per-tile plan == `plan()` == JAX `_plan`."""
+    feat = case["feat"]
+    ybase, j0_abs, ok = _kernel_plan(feat.shape[1:3], torch.from_numpy(case["grid"]))
+    tile = np.asarray(case["jplan"][0]).reshape(*ybase.shape, 3)
+    np.testing.assert_array_equal(ybase.numpy(), tile[..., 0] * 8)
+    np.testing.assert_array_equal(j0_abs.numpy(), tile[..., 1] * 128 + tile[..., 2])
+    p = tws.plan(_nchw(feat), torch.from_numpy(case["gp"]), case["vhw"])
+    assert torch.equal(ybase, p.ybase) and torch.equal(j0_abs, p.j0_abs)
+    assert ok == bool(p.ok) == bool(case["jplan"][6])
+
+
+def test_exact_plain_matches_jax_grid_sample(case):
+    """The plain exact mode (window taps where the window holds them, the
+    map's taps elsewhere) == JAX `grid_sample` within 3e-5 (float32, sums in
+    another order); on the rough batch both kinds of pixel occur."""
+    feat, gp = _nchw(case["feat"]), torch.from_numpy(case["gp"])
+    p = tws.plan(feat, gp, case["vhw"])
+    got = tws.windowed_exact_plain(feat, gp, case["vhw"], p).permute(0, 2, 3, 1).numpy()
+    ref = np.asarray(j_grid_sample(jnp.asarray(case["feat"]), jnp.asarray(case["grid"])))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=SAMPLE_TOL, rtol=0)
+    real_inwin = p.inwin[:, :case["vhw"][0], :case["vhw"][1]]
+    assert bool(real_inwin.all()) == (not case["rough"])
+    assert bool(real_inwin.any())
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel's wrapper takes CUDA tensors only: a CPU tensor raises
+    before anything is built or launched."""
+    feat = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16)
+    grid = torch.zeros((1, 8, 128, 2))
+    n0 = LAUNCHES["windowed_sample"]
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        windowed_sample_cuda(feat, grid)
+    assert LAUNCHES["windowed_sample"] == n0
 
 
 def test_grid_sample_smooth_channel_gate_and_modes(rng):
@@ -200,3 +322,36 @@ def test_debug_slice_fast_smooth_warp(force_interpret):
     np.testing.assert_allclose(w.numpy(), np.asarray(rw), atol=1e-4, rtol=0)
     dc = np.abs(c.numpy() - np.asarray(rc))
     assert (dc > 1e-4).mean() <= 5e-3 and dc.max() <= 1e-2, (int((dc > 1e-4).sum()), dc.max())
+
+
+@pytest.mark.parametrize("C,W,unit", [(9, 560, 8), (9, 864, 8), (9, 560, 4), (2, 136, 8),
+                                      (16, 8, 8), (3, 37, 1)])
+def test_channels_last_window_staging(rng, C, W, unit):
+    """The CUDA kernel's staging of a window row from a channels-last map,
+    mirrored in numpy: units of `unit` elements (8 bf16 or 4 float32 = 16
+    bytes; 1 = element by element, where a map row is not a multiple of 16
+    bytes) from element x_lo * C - sh of the map's row, sh = (x_lo * C) mod
+    unit, each unit copied or zero-filled whole. Where W * C is a multiple
+    of the unit, every unit lies wholly inside or outside the image's row,
+    and the staged row's element sh + col * C + c is the map's (x_lo + col,
+    c), zero outside the image, for every window column and channel; the
+    staged row fits its length."""
+    kcols = tws.TW + tws.E
+    vec = 8 if unit == 1 else unit
+    row_len = (kcols * C + 2 * vec - 1) // vec * vec
+    row = rng.standard_normal((W, C)).astype(np.float32).ravel()
+    for x_lo in (-128, -37, -1, 0, 3, W - 5, W + 2):
+        sh = (x_lo * C) % unit
+        units = (sh + kcols * C + unit - 1) // unit
+        assert units * unit <= row_len
+        staged = np.full(row_len, np.nan, np.float32)
+        for u in range(units):
+            e = x_lo * C - sh + u * unit
+            inside = 0 <= e < W * C
+            if unit > 1 and (W * C) % unit == 0:
+                assert inside == (0 <= e + unit - 1 < W * C)  # all in or all out
+            staged[u * unit:(u + 1) * unit] = row[e:e + unit] if inside else 0.0
+        for col in range(kcols):
+            x = x_lo + col
+            want = row[x * C:(x + 1) * C] if 0 <= x < W else np.zeros(C, np.float32)
+            np.testing.assert_array_equal(staged[sh + col * C:sh + (col + 1) * C], want)
