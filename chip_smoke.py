@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--profile] [--out DIR]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the seven CUDA kernels from roma_torch/csrc (one nvcc each, in
-   parallel) into build/kernels/;
+2. builds the CUDA kernels from roma_torch/csrc (one nvcc per source, all
+   in parallel) into build/kernels/;
 3. builds full-width roma_outdoor() (ViT-L/14 24 blocks, 560 -> 864,
    symmetric, bf16) with random weights from seed 0;
 4. holds every kernel against its plain PyTorch version at each shape the
@@ -50,7 +50,29 @@
 8. full RoMa with smooth_warp_gather="fast", then the same weights with
    smooth_warp_gather=True ("exact"): each counted (2 windowed-gather
    launches with the default path's others), timed, outputs checked;
-9. prints the kernels JSON line, then {"ok": true, "device": ...} last.
+9. float32 (C3): K1, K2, K3 and K5's float32 entries against their plain
+   versions at the main-path shapes (K1 on the captured inputs widened,
+   its tile plan all per-pixel), the debug model in float32 on the
+   GPU against the CPU (as in 6, with the decoder's margins), and
+   full-width match() with RomaConfig(dtype="float32"), counted as the
+   default path;
+10. flash attention's backward, K8 (dK/dV) and K9 (dQ), against
+   attention_bwd_plain in bf16 and float32 at the decoder's training shape
+   (2, 1600, 8, 128) and DINOv2's (4, 1601, 16, 64) as qkv views and at
+   ragged N, the forward's lse against logsumexp; a copy of the source with
+   a planted fault (K8 drops its last query tile, K9 the last tile's
+   block), built beside the main build, must exceed the bound >= 10x; the
+   kernels, the plain version and SDPA's whole backward timed, K3's forward
+   with and without lse;
+11. training: full-width roma_outdoor() at 560^2, batch 2, bf16, on
+   synthetic depth batches, one warm-up and 3 timed steps, the first
+   counted (K3 29, K8 5, K9 5; K1, K2, K4, K6 0), finite loss and metrics,
+   DINOv2 bit-unchanged, every running statistic moved, samples/s and peak
+   memory (with --profile, one step under torch.profiler); then the debug
+   model's float32 train step on the GPU against the CPU (loss rel 1e-4,
+   gradients under roma_torch.train.grad_parity, the rule
+   tests/test_torch_train.py holds JAX and the port to);
+12. prints the kernels JSON line, then {"ok": true, "device": ...} last.
 
 Any failure exits non-zero before the last line. Detailed per-shape results
 go to DIR/chip_smoke.json (default results/chip_smoke/).
@@ -63,6 +85,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -97,7 +120,14 @@ KERNELS = {
                        "roma_torch/csrc/dw_affine_relu.cu"),
     "dw_block_mm": ("roma_tpu/ops/pallas/depthwise.py:476",
                     "roma_torch/csrc/dw_block_mm.cu"),
+    "flash_attn_dkv": ("jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+                       "roma_torch/csrc/flash_attn_bwd.cu"),
+    "flash_attn_dq": ("jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+                      "roma_torch/csrc/flash_attn_bwd.cu"),
 }
+# the training step: full RoMa at 560^2, batch 2, bf16 (1 warm-up + 3 timed)
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -892,6 +922,483 @@ def summarize(name: str, rows: list[dict], launches: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------- float32 entries (C3)
+
+# |kernel - plain| <= F32_TOL * max(1, max|plain|), float32 sums in another order
+# (measured: at most 1.5e-6 of max|plain|, K1; 1e-4 was the first proposal)
+F32_TOL = 1e-5
+
+
+def _f32_err(got, ref, what, failures) -> float:
+    """Max |got - ref| of a float32 entry; records a failure beyond
+    F32_TOL * max(1, max|ref|)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    lim = F32_TOL * max(1.0, ref.abs().max().item())
+    if not math.isfinite(err) or err > lim:
+        failures.append(f"{what}: max_abs_err {err:.3e} > {lim:.3e}")
+    return err
+
+
+def check_float32_entries(dev, gen, cfg, captured, model) -> dict:
+    """The float32 entries of K1, K2, K3 and K5 against their plain versions
+    at the main-path shapes, timed: K1 on the main path's captured inputs
+    widened to float32 (its tile plan must put every tile on the per-pixel
+    path: the float32 entry has no shared-window path), K2's
+    9-block chain with the scale-1 refiner's weights folded in float32 at
+    both passes' sizes, K3 at DINOv2's and the decoder's shapes (views of a
+    fused qkv, B' = 4) with its log-sum-exp, K5 at its shapes. Tolerance
+    F32_TOL * max(1, max|plain|)."""
+    import torch
+
+    from roma_torch.kernels import attention as at
+    from roma_torch.kernels import dw_block_mm as k5
+    from roma_torch.kernels import dw_chain as k2
+    from roma_torch.kernels import local_corr as k1
+
+    failures, out = [], {"local_corr": [], "dw_chain": [], "flash_attn": [], "dw_block_mm": []}
+    for f0, f1, r, flow in captured:
+        a, b = f0.float().contiguous(), f1.float().contiguous()
+        got = k1.local_correlation_cuda(a, b, r, flow)
+        dims = list(a.shape)
+        err = _f32_err(got, k1.local_correlation_plain(a, b, r, flow), f"local_corr f32 {dims}",
+                       failures)
+        if bool(k1.tile_plan(flow, r, torch.float32).shared.any()):
+            failures.append(f"local_corr f32 {dims}: the tile plan left the per-pixel path")
+        out["local_corr"].append(dict(dims=dims, radius=r, max_abs_err=err, ms=cuda_ms(
+            lambda: k1.local_correlation_cuda(a, b, r, flow), 10)))
+
+    cols = [blk.fused(torch.float32) for blk in model.decoder.conv_refiner["1"].blocks()]
+    params = [torch.stack([c[i] for c in cols]).float().contiguous() for i in range(5)]
+    C = params[0].shape[-1]
+    for side in (cfg.coarse_resolution[0], cfg.upsample_resolution[0]):
+        x = torch.randn((2 * PAIRS, C, side, side), generator=gen, device=dev)
+        err = _f32_err(k2.chain_cuda_nchw(x, *params), k2.chain_plain_nchw(x, *params),
+                       f"dw_chain f32 {side}", failures)
+        out["dw_chain"].append(dict(dims=list(x.shape), blocks=params[0].shape[0],
+                                    max_abs_err=err,
+                                    ms=cuda_ms(lambda: k2.chain_cuda_nchw(x, *params), 5)))
+
+    n16 = (cfg.coarse_resolution[0] // 14) * (cfg.coarse_resolution[1] // 14)
+    for label, n, H, d in (("dinov2", n16 + 1, cfg.dinov2_heads, cfg.dinov2_dim // cfg.dinov2_heads),
+                           ("decoder", n16, cfg.decoder_heads,
+                            cfg.decoder_dim // cfg.decoder_heads)):
+        qkv = torch.randn((2 * PAIRS, n, 3, H, d), generator=gen, device=dev)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        o, lse = at.attention_cuda(q, k, v, with_lse=True)
+        err = _f32_err(o, at.attention_plain(q, k, v), f"flash_attn f32 {label}", failures)
+        lse_err = _f32_err(lse, at.attention_lse_plain(q, k), f"flash_attn f32 {label} lse",
+                           failures)
+        out["flash_attn"].append(dict(shape=label, dims=[2 * PAIRS, n, H, d], max_abs_err=err,
+                                      lse_max_abs_err=lse_err,
+                                      ms=cuda_ms(lambda: at.attention_cuda(q, k, v), 10)))
+
+    for label, B, Cm, side in DW_BLOCK_MM_SHAPES:
+        x = torch.randn((B, Cm, side, side), generator=gen, device=dev)
+        w = 0.2 * torch.randn((5, 5, Cm), generator=gen, device=dev)
+        sc = 0.5 + torch.rand((Cm,), generator=gen, device=dev)
+        sh = 0.1 * torch.randn((Cm,), generator=gen, device=dev)
+        m = torch.randn((Cm, Cm), generator=gen, device=dev) / math.sqrt(Cm)
+        bias = 0.1 * torch.randn((Cm,), generator=gen, device=dev)
+        args = (x, w, sc, sh, m, bias)
+        err = _f32_err(k5.dw5x5_affine_relu_mm_cuda_nchw(*args), k2.block_plain_nchw(*args),
+                       f"dw_block_mm f32 {label}", failures)
+        out["dw_block_mm"].append(dict(shape=label, dims=[B, Cm, side, side], max_abs_err=err,
+                                       ms=cuda_ms(lambda: k5.dw5x5_affine_relu_mm_cuda_nchw(*args),
+                                                  10)))
+    fail_if(bool(failures), "float32 entries: " + "; ".join(failures))
+    return out
+
+
+# ---------------------------------------------------------------- K8 / K9
+
+def _bwd_lib_call(lib, q, k, v, dout, lse, di, dtype_code):
+    """(dq, dk, dv) from a library with flash_attn_bwd.cu's C entries,
+    outputs zero-filled first (the planted-fault copy leaves rows unset)."""
+    import ctypes
+
+    import torch
+
+    B, N, H, d = q.shape
+    dq, dk, dv = (torch.zeros((B, N, H, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    st = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                  *dout.stride()[:3])
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, di)]
+    tail = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                                 ctypes.c_int, ctypes.c_void_p]
+    for sym, outs in (("roma_flash_attn_bwd_dkv", (dk, dv)), ("roma_flash_attn_bwd_dq", (dq,))):
+        fn = getattr(lib, sym)
+        fn.argtypes = [ctypes.c_void_p] * (6 + len(outs)) + tail
+        fn.restype = ctypes.c_int
+        rc = fn(*ptrs, *(t.data_ptr() for t in outs), B, N, H, d, st, 1.0 / math.sqrt(d),
+                dtype_code, stream)
+        fail_if(rc != 0, f"planted-fault build: {sym} returned {rc}")
+    torch.cuda.synchronize()
+    return dq, dk, dv
+
+
+def start_planted_build(tmp: Path):
+    """Build a copy of flash_attn_bwd.cu with a planted fault, started
+    beside the main build: K8 drops its last query tile, K9 the last query
+    tile's block (in the bf16 and the float32 kernels alike)."""
+    import shutil
+
+    from roma_torch.kernels import runtime
+
+    src = (runtime.CSRC / "flash_attn_bwd.cu").read_text()
+    dkv_loop = "for (int m0 = 0; m0 < N; m0 += kRows) {"
+    dq_grid = "const dim3 grid((a.N + kRows - 1) / kRows, a.H, B);"
+    fail_if(src.count(dkv_loop) != 2 or src.count(dq_grid) != 2,
+            "planted fault: the K8 loops or the K9 grids are not where they were")
+    src = src.replace(dkv_loop, "for (int m0 = 0; m0 < ((N - 1) / kRows) * kRows; m0 += kRows) {")
+    src = src.replace(dq_grid, "const dim3 grid((a.N + kRows - 1) / kRows - (dkv ? 0 : 1), a.H, B);")
+    for h in runtime.CSRC.glob("*.cuh"):
+        shutil.copy(h, tmp / h.name)
+    (tmp / "planted.cu").write_text(src)
+    lib = tmp / "libplanted.so"
+    cmd = [runtime.nvcc(), *runtime.NVCC_FLAGS, "-o", str(lib), str(tmp / "planted.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+# |kernel - plain| <= rel * |plain| + absn * M, M the largest plain gradient of the
+# call; tightened from the proposed 1e-2 M (bf16) and 1e-4 M (float32) toward
+# what was measured: bf16 (P and dS rounded to bf16 before their products) at
+# most 0.57 of 2^-7 |plain| + 4e-3 M, float32 0.053 of 1e-5 M
+BWD_TOL = {"bfloat16": (2.0 ** -7, 8e-3), "float32": (0.0, 2e-6)}
+
+
+def check_attention_bwd(dev, gen, cfg, planted) -> dict:
+    """K8 and K9 against `attention_bwd_plain` (and the forward's lse
+    against logsumexp of the plain logits), in bf16 and float32: at the
+    decoder's training shape (2, 1600, 8, 128) and at DINOv2's (4, 1601,
+    16, 64) as views of a fused qkv, and at ragged N (1, 63, 65, 129, 1601;
+    both head widths, views and contiguous). Tolerance per element
+    `BWD_TOL`: bf16 2^-7 |plain| + 8e-3 M (the inputs, o and dO are bf16,
+    P and dS are rounded to bf16 before their products, the gradients once
+    at the end), float32 2e-6 M. Then the
+    planted-fault build must exceed the bound >= 10x, and at the decoder's
+    training shape in bf16 the kernels, the plain version and SDPA's whole
+    backward are timed, with K3's forward with and without its lse."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from roma_torch.kernels import attention as at
+
+    failures, cases = [], []
+
+    def run(q, k, v, dout, what):
+        o, lse = at.attention_cuda(q, k, v, with_lse=True)
+        got = at.attention_bwd_cuda(q, k, v, o, lse, dout)
+        ref = at.attention_bwd_plain(q, k, v, o, lse, dout)
+        rel, absn = BWD_TOL[str(q.dtype).split(".")[1]]
+        M = max(r.abs().max().item() for r in ref)
+        row = dict(case=what, dims=list(q.shape), dtype=str(q.dtype))
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            d = (g.float() - r).abs()
+            worst = (d / (rel * r.abs() + absn * M)).max().item()
+            row[name] = dict(max_abs_err=d.max().item(), worst_over_tol=worst)
+            if not math.isfinite(worst) or worst > 1:
+                failures.append(f"{what} {name}: max_abs_err {d.max().item():.3e}, "
+                                f"{worst:.2f}x the bound")
+        lse_ref = at.attention_lse_plain(q, k)
+        row["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+        if row["lse_max_abs_err"] > 1e-4 * max(1.0, lse_ref.abs().max().item()):
+            failures.append(f"{what} lse: max_abs_err {row['lse_max_abs_err']:.3e}")
+        cases.append(row)
+        return o, lse, ref, M
+
+    def qkv_views(B, n, H, d, dtype, contiguous=False):
+        qkv = torch.randn((B, n, 3, H, d), generator=gen, device=dev).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if contiguous:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return q, k, v, torch.randn((B, n, H, d), generator=gen, device=dev).to(dtype)
+
+    n16 = (cfg.coarse_resolution[0] // 14) * (cfg.coarse_resolution[1] // 14)
+    dec = (TRAIN_BATCH, n16, cfg.decoder_heads, cfg.decoder_dim // cfg.decoder_heads)
+    dino = (2 * PAIRS, n16 + 1, cfg.dinov2_heads, cfg.dinov2_dim // cfg.dinov2_heads)
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        main[dtype] = qkv_views(*dec, dtype)
+        run(*main[dtype], f"decoder {dec} {dtype}")
+        run(*qkv_views(*dino, dtype), f"dinov2 {dino} {dtype}")
+        for n in (1, 63, 65, 129, 1601):
+            for d in at.HEAD_DIMS:
+                run(*qkv_views(1, n, 2, d, dtype), f"ragged N={n} d={d} {dtype}")
+        run(*qkv_views(1, 193, 3, 128, dtype, contiguous=True), f"contiguous N=193 {dtype}")
+    fail_if(bool(failures), "flash_attn backward: " + "; ".join(failures))
+
+    # the planted fault: dK/dV lose the last query tile, dQ the last tile's rows
+    proc, lib_path = planted
+    text, _ = proc.communicate()
+    fail_if(proc.returncode != 0, f"planted-fault build failed:\n{text}")
+    lib = ctypes.CDLL(str(lib_path))
+    planted_rows = {}
+    for dtype, code in ((torch.bfloat16, 0), (torch.float32, 1)):
+        q, k, v, dout = main[dtype]
+        o, lse = at.attention_cuda(q, k, v, with_lse=True)
+        ref = at.attention_bwd_plain(q, k, v, o, lse, dout)
+        got = _bwd_lib_call(lib, q, k, v, dout.contiguous(), lse, at.attention_di(o, dout), code)
+        rel, absn = BWD_TOL[str(dtype).split(".")[1]]
+        M = max(r.abs().max().item() for r in ref)
+        ratios = {name: ((g.float() - r).abs() / (rel * r.abs() + absn * M)).max().item()
+                  for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
+        planted_rows[str(dtype)] = ratios
+        fail_if(min(ratios.values()) < 10,
+                f"planted fault ({dtype}) exceeds the bound only {ratios}x, not >= 10x")
+
+    # timing at the decoder's training shape, bf16
+    q, k, v, dout = main[torch.bfloat16]
+    o, lse = at.attention_cuda(q, k, v, with_lse=True)
+    B, N, H, d = q.shape
+    dkv_ms = cuda_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout, ("dkv",)), 5)
+    dq_ms = cuda_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout, ("dq",)), 5)
+    plain_ms = cuda_ms(lambda: at.attention_bwd_plain(q, k, v, o, lse, dout), 3, 1)
+    leaves = [t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    dout_t = dout.transpose(1, 2)
+    sdpa_ms = cuda_ms_rounds(
+        lambda: torch.autograd.grad(sdpa_out, leaves, dout_t, retain_graph=True), 5)
+    fwd_ms = cuda_ms_rounds(lambda: at.attention_cuda(q, k, v), 20)
+    fwd_lse_ms = cuda_ms_rounds(lambda: at.attention_cuda(q, k, v, with_lse=True), 20)
+    gemm = 2.0 * B * H * N * N * d
+    exps = float(B * H * N * N)
+    elem = B * N * H * d * 2
+    side = 2 * B * H * N * 4  # lse and di
+    worst = lambda name: max(c[name]["max_abs_err"] for c in cases if "bfloat16" in c["dtype"])
+    rows = {}
+    for name, n_gemm, outs, ms, errs in (("flash_attn_dkv", 4, 2, dkv_ms, ("dk", "dv")),
+                                         ("flash_attn_dq", 3, 1, dq_ms, ("dq",))):
+        b_ms, b_by = bound((4 + outs) * elem + side, n_gemm * gemm, exps)
+        rows[name] = [dict(shape="decoder train", dims=[B, N, H, d], calls=cfg.num_decoder_blocks,
+                           max_abs_err=max(worst(e) for e in errs),
+                           tol="2^-7 |plain| + 8e-3 max|plain|",
+                           ms=median(ms), ms_rounds=ms, plain_ms=plain_ms,
+                           library_ms=median(sdpa_ms), library_ms_rounds=sdpa_ms,
+                           bound_ms=b_ms, bound_by=b_by)]
+    return dict(rows=rows, cases=cases, planted=planted_rows,
+                fwd_ms=median(fwd_ms), fwd_lse_ms=median(fwd_lse_ms), fwd_ms_rounds=fwd_ms,
+                fwd_lse_ms_rounds=fwd_lse_ms)
+
+
+# ---------------------------------------------------------------- training
+
+def synthetic_depth_batch(gen, dev, B: int, hw: tuple[int, int]) -> dict:
+    """One batch of the dataset contract from a seeded generator, made on
+    the device: uniform images, depth 2 +- 0.3 with the top eighth missing,
+    a 0.05 rad yaw and 5 cm baseline, focal 1.4 x the width."""
+    import torch
+
+    h, w = hw
+    f = 1.4 * w
+    K = torch.tensor([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], device=dev).expand(B, 3, 3)
+    a = 0.05
+    T = torch.eye(4, device=dev)
+    T[0, 0], T[0, 2], T[2, 0], T[2, 2] = math.cos(a), math.sin(a), -math.sin(a), math.cos(a)
+    T[0, 3] = 0.05
+
+    def depth():
+        d = 2.0 + 0.3 * (2 * torch.rand((B, h, w), generator=gen, device=dev) - 1)
+        d[:, : h // 8] = 0.0
+        return d
+
+    return {"im_A": torch.rand((B, h, w, 3), generator=gen, device=dev),
+            "im_B": torch.rand((B, h, w, 3), generator=gen, device=dev),
+            "im_A_depth": depth(), "im_B_depth": depth(), "T_1to2": T.expand(B, 4, 4),
+            "K1": K, "K2": K}
+
+
+def run_training(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
+    """Path T: full-width roma_outdoor() (ViT-L 24 blocks, 5 decoder blocks,
+    refiners with 8 hidden blocks, bf16) trained at 560^2, batch 2, on
+    synthetic depth batches: one warm-up step, then 3 timed steps, the
+    launch counters reset just before the first and read just after it
+    (K3 29 = 24 DINOv2 without grad + 5 decoder with lse, K8 5, K9 5; K1,
+    K2, K4, K6 0). Finite loss and metrics (gm_cls_loss_16 among them),
+    DINOv2 bit-unchanged, every running statistic moved; samples/s and
+    peak memory; with `profile_dir`, one more step under torch.profiler."""
+    import torch
+
+    from roma_torch.config import RomaConfig, TrainConfig
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.models.zoo import build_model
+    from roma_torch.train.train import make_roma_train_state, make_train_step
+
+    cfg = RomaConfig()
+    state = make_roma_train_state(TrainConfig(batch_size=TRAIN_BATCH), model=build_model(cfg, SEED),
+                                  device=dev)
+    model = state.model
+    step = make_train_step()
+    dino0 = {k: t.clone() for k, t in model.encoder.dinov2.state_dict().items()}
+    stats0 = {k: t.clone() for k, t in model.state_dict().items()
+              if k.endswith(("running_mean", "running_var")) and "dinov2" not in k}
+    batches = [synthetic_depth_batch(gen, dev, TRAIN_BATCH, cfg.coarse_resolution)
+               for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    state, metrics = step(state, batches[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times, all_metrics = [], []
+    for i, batch in enumerate(batches[1:]):
+        if i == 0:
+            reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(LAUNCHES)
+        all_metrics.append({k: float(v) for k, v in metrics.items()})
+    res = dict(first_step_s=first_s, step_s=times, samples_per_s=TRAIN_BATCH * len(times) / sum(times),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+               metrics=all_metrics, samples=state.step)
+    expected = {"flash_attn": cfg.dinov2_depth + cfg.num_decoder_blocks,
+                "flash_attn_dkv": cfg.num_decoder_blocks, "flash_attn_dq": cfg.num_decoder_blocks,
+                "local_corr": 0, "dw_chain": 0, "dw_affine_relu": 0, "windowed_sample": 0,
+                "corr_softmax": 0, "dw_block_mm": 0}
+    res["expected_launches"] = expected
+    print(f"[{card}] train step full RoMa 560^2 batch {TRAIN_BATCH} bf16: first {first_s:.3f} s, "
+          f"then {', '.join(f'{t:.4f}' for t in times)} s; {res['samples_per_s']:.3f} samples/s; "
+          f"peak {res['peak_mem_gb']:.2f} GB; launches a step {launches}", flush=True)
+    print(f"[{card}] train metrics: {json.dumps(all_metrics[-1])}", flush=True)
+    for name, n in expected.items():
+        fail_if(launches[name] != n, f"train step: {name}: {launches[name]} launches, expected {n}")
+    for m in all_metrics:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        fail_if(bool(bad), f"train step: non-finite metrics {bad}")
+    fail_if("gm_cls_loss_16" not in all_metrics[-1], "train step: no gm_cls_loss_16")
+    dino1 = model.encoder.dinov2.state_dict()
+    fail_if(any(not torch.equal(dino0[k], dino1[k]) for k in dino0), "train step: DINOv2 changed")
+    sd = model.state_dict()
+    still = [k for k in stats0 if torch.equal(stats0[k], sd[k])]
+    fail_if(bool(still), f"train step: running statistics not moved: {still[:5]}")
+    res["bn_statistics_moved"] = len(stats0)
+    if profile_dir is not None:
+        res["profile"] = profile_train_step(step, state, batches[1], profile_dir)
+        print(f"[{card}] train profile: {json.dumps(res['profile'])}", flush=True)
+    return res
+
+
+def profile_train_step(step, state, batch, out_dir: Path) -> dict:
+    """torch.profiler over one training step: wall time, device busy time
+    and share, the forward's labelled stages (`roma.*` ranges: device span
+    of the forward's kernels; the backward and a checkpoint's recompute run
+    outside them), the top kernels by device time (table in
+    out_dir/profile_train.txt)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_total = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+    dev_self = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    ranges = ("roma.", "Optimizer.")  # labelled ranges, not kernels
+    stages = {e.key: dev_total(e) / 1e3 for e in events if e.key.startswith(ranges)}
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(ranges)]
+    busy_ms = sum(dev_self(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_self, reverse=True)[:25]
+    (out_dir / "profile_train.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=60))
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / (wall_s * 1e3), "stages_device_ms": stages,
+            "top_kernels_ms": {e.key[:80]: dev_self(e) / 1e3 for e in top}}
+
+
+def check_debug_train_step(dev, card: str) -> dict:
+    """The debug-size model in float32, one training step on the GPU (K3's
+    float32 entry with lse, K8 and K9 in float32) and on the CPU (plain
+    versions) from the same weights and batch: loss and metrics rel 1e-4;
+    gradients before the clip under the rule tests/test_torch_train.py holds
+    JAX and the port to (`roma_torch.train.grad_parity`: 1e-3 max|g| per
+    tensor, the named kink-sensitive tensors of VGG and scales 8 to 1 within
+    their relative L2 bounds, conv biases before a BatchNorm below 1e-6).
+    Every tensor's reading (max-abs over max|g|, relative L2) goes into the
+    report."""
+    import dataclasses
+
+    import torch
+
+    from roma_torch.config import TrainConfig
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.models.zoo import build_model, debug_roma_config
+    from roma_torch.train.grad_parity import grad_mismatches
+    from roma_torch.train.train import make_roma_train_state, make_train_step
+
+    cfg = dataclasses.replace(debug_roma_config(), dtype="float32")
+    g = torch.Generator().manual_seed(SEED)
+    batch = synthetic_depth_batch(g, "cpu", 1, cfg.coarse_resolution)
+    step = make_train_step()
+    out, grads = {}, {}
+    for where in ("cpu", dev):
+        state = make_roma_train_state(TrainConfig(batch_size=1), model=build_model(cfg, SEED),
+                                      device=where)
+        reset_launches()
+        state, metrics = step(state, batch)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            out["launches"] = dict(LAUNCHES)
+        norm = float(metrics["grad_norm"])
+        sc = max(norm, 0.01) / 0.01  # undo the clip
+        grads[str(where)] = {n: p.grad.float().cpu() * sc for n, p in
+                             state.model.named_parameters() if p.grad is not None}
+        out[str(where)] = {k: float(v) for k, v in metrics.items()}
+        model = state.model
+    cpu, gpu = out["cpu"], out[str(dev)]
+    bad = [k for k in cpu if abs(gpu[k] - cpu[k]) > 1e-4 * abs(cpu[k]) + 1e-12]
+    bad_grads, worst = grad_mismatches(model, grads[str(dev)], grads["cpu"])
+    bad += bad_grads
+    readings = {n: [((grads[str(dev)][n] - r).abs().max() / r.abs().max().clamp_min(1e-30)).item(),
+                    ((grads[str(dev)][n] - r).norm() / r.norm().clamp_min(1e-30)).item()]
+                for n, r in grads["cpu"].items()}
+    res = dict(loss_cpu=cpu["total_loss"], loss_gpu=gpu["total_loss"],
+               loss_rel_diff=abs(gpu["total_loss"] - cpu["total_loss"]) / abs(cpu["total_loss"]),
+               grads=worst, launches=out["launches"])
+    print(f"[{card}] debug float32 train step GPU vs CPU: {json.dumps(res)}", flush=True)
+    res["grad_readings"] = readings
+    expected = {"flash_attn": cfg.dinov2_depth + cfg.num_decoder_blocks,
+                "flash_attn_dkv": cfg.num_decoder_blocks, "flash_attn_dq": cfg.num_decoder_blocks}
+    for k, v in expected.items():
+        fail_if(out["launches"][k] != v, f"debug train step: {k} {out['launches'][k]} != {v}")
+    fail_if(bool(bad), f"debug float32 train step GPU vs CPU: {bad[:8]}")
+    return res
+
+
+def run_float32_match(dev, gen, card: str) -> dict:
+    """Full-width roma_outdoor() with RomaConfig(dtype="float32"): match()
+    on 2 pairs counted as the default path (K1 5, K2 18, K3 29, K4 63, all
+    through their float32 entries), timed, outputs checked."""
+    import dataclasses
+
+    import torch
+
+    from roma_torch.config import RomaConfig
+    from roma_torch.models.zoo import roma_outdoor
+
+    matcher = roma_outdoor(seed=SEED, device=dev,
+                           cfg=dataclasses.replace(RomaConfig(), dtype="float32"))
+    warp, cert, launches, first_s, times = run_main_path(matcher, gen, dev, repeats=1)
+    expected = expected_launches(matcher.cfg)
+    print(f"[{card}] match() float32 on 2 pairs: first {first_s:.3f} s, then "
+          f"{', '.join(f'{t:.4f}' for t in times)} s; launches {launches}", flush=True)
+    for name, n in expected.items():
+        fail_if(launches[name] != n, f"float32 match: {name}: {launches[name]} launches, "
+                f"expected {n}")
+    check_outputs(matcher, warp, cert)
+    res = dict(first_match_s=first_s, match_s=times, pairs_per_s=PAIRS / min(times),
+               launches=launches)
+    del matcher
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------- main path
 
 def timed_match(matcher, a, b):
@@ -968,18 +1475,21 @@ def check_outputs(matcher, warp, cert, shape=None, clamped: bool = True):
     fail_if(tuple(m.shape) != (5000, 4) or tuple(c.shape) != (5000,), "sample() shape")
 
 
-def check_small_reference(seed: int, dev):
+def check_small_reference(seed: int, dev, dtype: str = "bfloat16"):
     """Debug-size model (full widths, 2 ViT blocks, 112 -> 224) on the GPU
     through the kernels against the same weights on the CPU through the
-    plain versions, both bf16. Differences come from bf16 rounding in other
-    places (cuDNN vs CPU convolutions), so the check is on robust summaries:
-    median |warp difference| < 0.02 and mean |certainty difference| < 0.05.
-    Beside it, `per_scale_diffs` says at which scale the differences arise."""
+    plain versions, both in `dtype` (bf16, or float32 through the kernels'
+    float32 entries). Differences come from rounding in other places (cuDNN
+    vs CPU convolutions), so the check is on robust summaries: median |warp
+    difference| < 0.02 and mean |certainty difference| < 0.05. Beside it,
+    `per_scale_diffs` says at which scale the differences arise."""
+    import dataclasses
+
     import torch
 
     from roma_torch.models.zoo import debug_roma_config, roma_outdoor
 
-    cfg = debug_roma_config()
+    cfg = dataclasses.replace(debug_roma_config(), dtype=dtype)
     gpu = roma_outdoor(cfg=cfg, seed=seed, device=dev)
     cpu = roma_outdoor(cfg=cfg, seed=seed, device="cpu")
     g = torch.Generator().manual_seed(seed)
@@ -1083,6 +1593,19 @@ def print_rows(card: str, rows: dict, name: str) -> None:
               f"{r['bound_ms'] / r['ms']:.1%} of the bound"
               + (f"; rounds {[round(t, 4) for t in r['ms_rounds']]} ms" if "ms_rounds" in r else ""),
               flush=True)
+
+
+def print_attention_bwd(card: str, bwd: dict) -> None:
+    """K8/K9: the worst error of each case over its bound, the planted
+    fault's excess, K3's forward with and without its lse."""
+    for c in bwd["cases"]:
+        print(f"[{card}] flash_attn bwd {c['case']}: " + ", ".join(
+            f"{n} err {c[n]['max_abs_err']:.3e} ({c[n]['worst_over_tol']:.3f} of tol)"
+            for n in ("dq", "dk", "dv")) + f"; lse err {c['lse_max_abs_err']:.2e}", flush=True)
+    print(f"[{card}] flash_attn bwd planted fault, error over the bound: "
+          f"{json.dumps(bwd['planted'])}", flush=True)
+    print(f"[{card}] flash_attn forward at the decoder's training shape: {bwd['fwd_ms']:.4f} ms "
+          f"without lse, {bwd['fwd_lse_ms']:.4f} ms with lse", flush=True)
 
 
 def print_windowed(card: str, rows: list[dict]) -> None:
@@ -1284,6 +1807,8 @@ def expected_launches(cfg) -> dict:
         "windowed_sample": 0,
         "dw_affine_relu": sum(blocks for *_, blocks in wide_refiner_shapes(cfg)),
         "dw_block_mm": 0,
+        "flash_attn_dkv": 0,
+        "flash_attn_dq": 0,
     }
 
 
@@ -1398,9 +1923,12 @@ def main() -> int:
     report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
+    planted_dir = tempfile.TemporaryDirectory()
+    planted = start_planted_build(Path(planted_dir.name))  # beside the main build
     report["ptxas"] = runtime.build()
     report["build_s"] = time.perf_counter() - t0
-    print(f"[{card}] built {len(runtime.SOURCES)} kernels in {report['build_s']:.1f} s", flush=True)
+    print(f"[{card}] built {len(runtime.SOURCES)} kernel sources in {report['build_s']:.1f} s",
+          flush=True)
 
     t0 = time.perf_counter()
     matcher = roma_outdoor(seed=SEED, device=dev)
@@ -1409,17 +1937,27 @@ def main() -> int:
     cfg = matcher.cfg
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    captured = capture_local_corr(matcher, gen, dev)
     rows = {
-        "local_corr": check_local_corr(dev, gen, cfg, capture_local_corr(matcher, gen, dev)),
+        "local_corr": check_local_corr(dev, gen, cfg, captured),
         "dw_chain": check_dw_chain(dev, gen, cfg, chain_params(matcher.model)),
         "flash_attn": check_flash_attn(dev, gen, cfg),
         "dw_affine_relu": check_dw_affine_relu(dev, gen, cfg),
         "dw_block_mm": check_dw_block_mm(dev, gen),
     }
+    bwd = check_attention_bwd(dev, gen, cfg, planted)
+    planted_dir.cleanup()
+    rows.update(bwd["rows"])
     report["kernel_rows"] = rows
+    report["attention_bwd"] = {k: v for k, v in bwd.items() if k != "rows"}
+    report["float32_entries"] = f32 = check_float32_entries(dev, gen, cfg, captured, matcher.model)
+    del captured
     torch.cuda.empty_cache()
     for name in rows:
         print_rows(card, rows, name)
+    print_attention_bwd(card, bwd)
+    print(f"[{card}] float32 entries (C3), tolerance {F32_TOL:.0e} max(1, max|plain|): "
+          + json.dumps(f32), flush=True)
     print(f"[{card}] dw_affine_relu share of elements differing from plain: "
           f"{[r['differing_share'] for r in rows['dw_affine_relu']]}; ragged "
           f"{rows['dw_affine_relu'][0]['ragged']}", flush=True)
@@ -1456,19 +1994,21 @@ def main() -> int:
     report["match_raw"] = run_match_raw(matcher, card)
     del matcher
     torch.cuda.empty_cache()
-    report["small_reference"] = check_small_reference(SEED, dev)
-    ref = report["small_reference"]
-    print(f"[{card}] debug model GPU vs CPU: " + json.dumps(
-        {k: v for k, v in ref.items() if k != "per_scale"}), flush=True)
-    print(f"[{card}] debug model match decoder top-2 logit margins (C1): "
-          + json.dumps(ref["per_scale"]["decoder_margins"]), flush=True)
-    for pass_, scales in ref["per_scale"].items():
-        if pass_ == "decoder_margins":
-            continue
-        print(f"[{card}] debug model GPU vs CPU, {pass_} pass per scale (|dflow| max / 99.9% / "
-              "mean |dcert|): " + "; ".join(
-                  f"{s} {v['max_flow']:.3e} / {v['q999_flow']:.3e} / {v['mean_cert']:.3e}"
-                  for s, v in scales.items()), flush=True)
+    for dtype in ("bfloat16", "float32"):
+        key = "small_reference" if dtype == "bfloat16" else "small_reference_float32"
+        report[key] = ref = check_small_reference(SEED, dev, dtype)
+        print(f"[{card}] debug model {dtype} GPU vs CPU: " + json.dumps(
+            {k: v for k, v in ref.items() if k != "per_scale"}), flush=True)
+        print(f"[{card}] debug model {dtype} match decoder top-2 logit margins (C1): "
+              + json.dumps(ref["per_scale"]["decoder_margins"]), flush=True)
+        for pass_, scales in ref["per_scale"].items():
+            if pass_ == "decoder_margins":
+                continue
+            print(f"[{card}] debug model {dtype} GPU vs CPU, {pass_} pass per scale (|dflow| max "
+                  "/ 99.9% / mean |dcert|): " + "; ".join(
+                      f"{s} {v['max_flow']:.3e} / {v['q999_flow']:.3e} / {v['mean_cert']:.3e}"
+                      for s, v in scales.items()), flush=True)
+    report["float32_match"] = run_float32_match(dev, gen, card)
 
     rows["corr_softmax"] = check_corr_softmax(dev, gen)
     print_rows(card, rows, "corr_softmax")
@@ -1484,10 +2024,17 @@ def main() -> int:
     print_rows(card, rows, "windowed_sample")
     print_windowed(card, rows["windowed_sample"])
     report["smooth_warp"] = run_smooth_warp(dev, gen, card)
+    torch.cuda.empty_cache()
+    report["train"] = run_training(dev, gen, card, out_dir if args.profile else None)
+    torch.cuda.empty_cache()
+    report["debug_train_step"] = check_debug_train_step(dev, card)
 
     # each kernel's launches come from the run of the path it serves
+    train = report["train"]["launches"]
     path_launches = dict(launches, corr_softmax=report["tiny"]["launches"]["corr_softmax"],
-                         windowed_sample=report["smooth_warp"]["launches"]["windowed_sample"])
+                         windowed_sample=report["smooth_warp"]["launches"]["windowed_sample"],
+                         flash_attn_dkv=train["flash_attn_dkv"],
+                         flash_attn_dq=train["flash_attn_dq"])
     kernels = [summarize(name, rows[name], path_launches[name]) for name in KERNELS]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

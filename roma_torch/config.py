@@ -112,3 +112,39 @@ class RomaConfig:
         }
     )
     dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh of the JAX package's data parallelism (kept for the
+    defaults of `TrainConfig`; the port's data parallelism is later work)."""
+    data: int = -1                # -1: use all devices
+    model: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8           # global batch
+    steps: int = 8_000_000        # counted in samples, like the reference
+    lr_encoder: float = 5e-6 / 8
+    lr_decoder: float = 1e-4 / 8
+    grad_clip: float = 0.01
+    milestone_frac: float = 0.9   # MultiStepLR milestone at 90% of schedule
+    lr_decay: float = 0.2
+    warmup_samples: int = 0       # linear LR warmup (unused by the shipped recipes)
+    checkpoint_every: int = 25_000
+    seed: int = 0
+    mesh: MeshConfig = MeshConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """RobustLosses settings of the full-RoMa recipe."""
+    ce_weight: float = 0.01
+    local_dist: Mapping[int, float] = dataclasses.field(
+        default_factory=lambda: {1: 4, 2: 4, 4: 8, 8: 8}
+    )
+    local_largest_scale: int = 8
+    alpha: float = 0.5
+    c: float = 1e-4
+    relative_depth_error_threshold: float = 0.05

@@ -55,6 +55,7 @@
 // designs that overlapped them more (a deeper halo ring, twice the warps,
 // the mix folded into the chunk loop, 4 x 64 tiles) measured no faster.
 
+#include "dw_block_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -421,6 +422,15 @@ ROMA_EXPORT long long roma_dw_block_mm_smem(int C) {
     case 10: return Geo<160>::bytes(C);
     default: return 0;
   }
+}
+
+// The float32 entry, one whole block: x, z (B, C, H, W) float32; w (5, 5, C),
+// scale, shift, bias (C,), m (C, C) float32 (dw_block_f32.cuh).
+ROMA_EXPORT int roma_dw_block_mm_f32(const void* x, void* z, const void* w, const void* scale,
+                       const void* shift, const void* m, const void* bias, int B, int C,
+                       int H, int W, void* stream) {
+  return dwf32::launch(x, z, w, scale, shift, m, bias, B, C, H, W,
+                       static_cast<cudaStream_t>(stream));
 }
 
 ROMA_EXPORT const char* roma_error_string(int code) {

@@ -51,6 +51,7 @@
 // slower). The TPU version's padded frame and width-major layout have no
 // counterpart.
 
+#include "dw_block_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -447,6 +448,15 @@ ROMA_EXPORT int roma_dw_block(const void* x, void* z, const void* taps, const vo
     case 4: return launch<64, 4>(a, B, smem_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The float32 entry, one block of the scale-1 chain: x, z (B, C, H, W) float32; w (5, 5, C),
+// scale, shift, bias (C,), m (C, C) float32 (dw_block_f32.cuh).
+ROMA_EXPORT int roma_dw_block_f32(const void* x, void* z, const void* w, const void* scale,
+                       const void* shift, const void* m, const void* bias, int B, int C,
+                       int H, int W, void* stream) {
+  return dwf32::launch(x, z, w, scale, shift, m, bias, B, C, H, W,
+                       static_cast<cudaStream_t>(stream));
 }
 
 ROMA_EXPORT const char* roma_error_string(int code) {

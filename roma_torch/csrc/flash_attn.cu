@@ -1,5 +1,9 @@
 // Flash attention forward, no mask: o = softmax(q k^T / sqrt(d)) v on
-// (B, N, H, d) bf16 with fp32 accumulation, d in {64, 128}.
+// (B, N, H, d) bf16 with fp32 accumulation, d in {64, 128}; with an `lse`
+// pointer it also writes each row's log-sum-exp of the scaled logits, the
+// residual that the backward kernels (flash_attn_bwd.cu) read. A float32
+// entry (roma_flash_attn_f32) runs the simple FMA kernel of
+// attn_simple.cuh, with the same optional lse.
 //
 // Replaces the TPU kernel used by roma_tpu/models/transformer.py
 // (_flash_attention -> the Pallas TPU flash_attention library kernel). The
@@ -43,6 +47,7 @@
 
 #include <math_constants.h>
 
+#include "attn_simple.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -167,8 +172,9 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], int valid, int t, 
 template <int D>
 __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
-                 const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, int N, int H,
-                 int B, long long o_sb, long long o_sn, long long o_sh, float scale_log2) {
+                 const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int N, int H, int B, long long o_sb, long long o_sn,
+                 long long o_sh, float scale_log2) {
   using L = Layout<D>;
   constexpr int kConsumers = L::kConsumers;
   constexpr int kWG = L::kWG;
@@ -371,6 +377,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
     const float inv1 = 1.0f / sum1;
     const int r0 = m0 + wg * 64 + warp * 16 + g;
     const int r1 = r0 + 8;
+    if (lse != nullptr && t == 0) {  // natural log: (max + log2 sum) ln 2
+      float* lrow = lse + ((long long)b * H + h) * N;
+      if (r0 < N) lrow[r0] = (mx0 + __log2f(sum0)) * 0.6931471805599453f;
+      if (r1 < N) lrow[r1] = (mx1 + __log2f(sum1)) * 0.6931471805599453f;
+    }
     bf16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
     for (int k = 0; k < D / 8; ++k) {
@@ -402,7 +413,7 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int N, int H, int D, in
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, bf16* o, int B, int N, int H,
+int launch(const void* q, const void* k, const void* v, bf16* o, float* lse, int B, int N, int H,
            const long long* st, float scale_log2, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
@@ -424,7 +435,7 @@ int launch(const void* q, const void* k, const void* v, bf16* o, int B, int N, i
   // one persistent block per SM (its shared memory and registers allow one)
   const int grid = (int)(tiles < sms ? tiles : sms);
   flash_fwd_kernel<D><<<grid, Layout<D>::kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], o, N, H, B, st[9], st[10], st[11], scale_log2);
+      maps[0], maps[1], maps[2], o, lse, N, H, B, st[9], st[10], st[11], scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -432,16 +443,35 @@ int launch(const void* q, const void* k, const void* v, bf16* o, int B, int N, i
 
 // q, k, v: (B, N, H, d) bf16 with unit stride along d; strides (in
 // elements, multiples of 8, 16-byte aligned pointers) are given for the
-// B, N and H axes of q, k, v and o, in that order: 12 values.
+// B, N and H axes of q, k, v and o, in that order: 12 values. lse: null,
+// or (B, H, N) float32 for the rows' log-sum-exp.
 ROMA_EXPORT int roma_flash_attn(const void* q, const void* k, const void* v, void* o,
-                                int B, int N, int H, int D, const long long* strides,
-                                float scale_log2, void* stream) {
+                                void* lse, int B, int N, int H, int D,
+                                const long long* strides, float scale_log2, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto oo = static_cast<bf16*>(o);
+  auto ll = static_cast<float*>(lse);
   switch (D) {
-    case 64: return launch<64>(q, k, v, oo, B, N, H, strides, scale_log2, s);
-    case 128: return launch<128>(q, k, v, oo, B, N, H, strides, scale_log2, s);
+    case 64: return launch<64>(q, k, v, oo, ll, B, N, H, strides, scale_log2, s);
+    case 128: return launch<128>(q, k, v, oo, ll, B, N, H, strides, scale_log2, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The float32 entry: q, k, v (B, N, H, d) float32 with unit stride along
+// d, strides of q, k, v (9 values); o contiguous (B, N, H, d) float32;
+// lse null or (B, H, N) float32. One block per 64 query rows of one
+// (b, h), float32 FMA throughout (attn_simple.cuh).
+ROMA_EXPORT int roma_flash_attn_f32(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int B, int N, int H, int D,
+                                    const long long* strides, float scale_log2, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto ll = static_cast<float*>(lse);
+  switch (D) {
+    case 64: return attn::launch_fwd<64>(q, k, v, o, ll, B, N, H, strides, scale_log2, s);
+    case 128: return attn::launch_fwd<128>(q, k, v, o, ll, B, N, H, strides, scale_log2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

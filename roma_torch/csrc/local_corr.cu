@@ -1,4 +1,6 @@
-// Local correlation around a dense warp, bf16 features, fp32 out.
+// Local correlation around a dense warp, bf16 features, fp32 out; a
+// float32 entry (roma_local_corr_f32) runs the per-pixel kernel on float32
+// features at every radius (the shared-window path is bf16 only).
 //
 // Replaces the TPU kernel roma_tpu/ops/pallas/block_gather.py
 // (local_correlation_dma -> _block_corr -> _kernel). Same function as
@@ -344,9 +346,30 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(const Args a, const f
 // whose tile takes the shared path leaves after the tile's box, and the
 // warp of each tile's first pixel records the tile's path in tile_paths,
 // (B, th, tw), for the shared kernel.
-template <int NCH, bool PLAN>  // C = 128 * NCH; each lane holds NCH groups of 4 channels
+// Four channels of a feature row as floats: one 8-byte load of bf16, one
+// 16-byte load of float32.
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = bf2f(h[i]);
+}
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 raw = *reinterpret_cast<const float4*>(p);
+  v[0] = raw.x;
+  v[1] = raw.y;
+  v[2] = raw.z;
+  v[3] = raw.w;
+}
+// f0 / sqrt(C) rounded to the features' dtype, as the plain version's
+// prescale
+__device__ __forceinline__ float prescaled(const bf16*, float v) { return round_bf16(v); }
+__device__ __forceinline__ float prescaled(const float*, float v) { return v; }
+
+// T is bf16 or float (the float32 entry: no PLAN, every tile per pixel).
+template <int NCH, bool PLAN, typename T = bf16>  // C = 128 * NCH; a lane holds NCH groups of 4
 __global__ void __launch_bounds__(kWarps * 32)
-pixel_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
+pixel_kernel(const T* __restrict__ f0, const T* __restrict__ f1,
              const float* __restrict__ flow, float* __restrict__ out,
              int* __restrict__ tile_paths, int B, int H, int W, int r, float scale) {
   constexpr int C = 128 * NCH;
@@ -371,13 +394,13 @@ pixel_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
 
   // f0 row, prescaled by 1/sqrt(C) and rounded to bf16 like the plain version
   float a[NCH][4];
-  const bf16* f0p = f0 + p * C;
+  const T* f0p = f0 + p * C;
 #pragma unroll
   for (int j = 0; j < NCH; ++j) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(f0p + (j * 32 + lane) * 4);
-    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+    float v[4];
+    load4(f0p + (j * 32 + lane) * 4, v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[j][i] = round_bf16(__fmul_rn(bf2f(v[i]), scale));
+    for (int i = 0; i < 4; ++i) a[j][i] = prescaled(f0p, __fmul_rn(v[i], scale));
   }
 
   // sample position, float32 without contraction (matches the plain version)
@@ -392,7 +415,7 @@ pixel_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
   const int y0 = (int)fminf(fmaxf(fy0, -lim), (float)H + lim);
 
   const int K2 = 2 * r + 2;
-  const bf16* f1b = f1 + (long long)b * H * W * C;
+  const T* f1b = f1 + (long long)b * H * W * C;
   float* g = g_s[warp];
   for (int dy = 0; dy < K2; ++dy) {
     const int yy = y0 - r + dy;
@@ -401,13 +424,13 @@ pixel_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
       const int xx = x0 - r + dx;
       float s = 0.0f;
       if (yok && xx >= 0 && xx < W) {  // uniform across the warp
-        const bf16* q = f1b + ((long long)yy * W + xx) * C;
+        const T* q = f1b + ((long long)yy * W + xx) * C;
 #pragma unroll
         for (int j = 0; j < NCH; ++j) {
-          const uint2 raw = *reinterpret_cast<const uint2*>(q + (j * 32 + lane) * 4);
-          const bf16* v = reinterpret_cast<const bf16*>(&raw);
+          float v[4];
+          load4(q + (j * 32 + lane) * 4, v);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) s = fmaf(a[j][i], bf2f(v[i]), s);
+          for (int i = 0; i < 4; ++i) s = fmaf(a[j][i], v[i], s);
         }
         s = warp_sum(s);
       }
@@ -469,6 +492,18 @@ int launch(const Args& a, float* g, cudaStream_t stream) {
   return err != cudaSuccess ? (int)err : launch_shared(a, 128 * NCH, g, stream);
 }
 
+// The float32 entry: the per-pixel kernel at every radius, no shared tiles.
+template <int NCH>
+int launch_f32(const float* f0, const float* f1, const Args& a, cudaStream_t stream) {
+  const long long n_pix = (long long)a.B * a.H * a.W;
+  const unsigned grid = (unsigned)((n_pix + kWarps - 1) / kWarps);
+  pixel_kernel<NCH, false, float><<<grid, kThreads, 0, stream>>>(f0, f1, a.flow, a.out, nullptr,
+                                                                 a.B, a.H, a.W, a.r, a.scale);
+  if (a.tile_paths != nullptr)
+    cudaMemsetAsync(a.tile_paths, 0, (size_t)a.B * a.th * a.tw * sizeof(int), stream);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // f0, f1: (B, H, W, C) bf16 contiguous, 16-byte aligned; flow: (B, H, W, 2)
@@ -501,6 +536,33 @@ ROMA_EXPORT int roma_local_corr(const void* f0, const void* f1, const void* flow
     case 6: return launch<6>(a, g, s);
     case 7: return launch<7>(a, g, s);
     case 8: return launch<8>(a, g, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The float32 entry: f0, f1 (B, H, W, C) float32 contiguous, 16-byte
+// aligned; the rest as roma_local_corr, without scores: every tile takes
+// the per-pixel path, and tile_paths (may be null) is filled with 0.
+ROMA_EXPORT int roma_local_corr_f32(const void* f0, const void* f1, const void* flow, void* out,
+                                    void* tile_paths, int B, int H, int W, int C, int r,
+                                    float scale, void* stream) {
+  if (C % 128 != 0 || C > 1024 || r < 0 || r > 7) return (int)cudaErrorInvalidValue;
+  if ((long long)B * H * W == 0) return (int)cudaSuccess;
+  const Args a{nullptr, nullptr, static_cast<const float*>(flow), static_cast<float*>(out),
+               static_cast<int*>(tile_paths), B, H, W, r, (H + kT - 1) / kT, (W + kT - 1) / kT,
+               scale};
+  auto x0 = static_cast<const float*>(f0);
+  auto x1 = static_cast<const float*>(f1);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C / 128) {
+    case 1: return launch_f32<1>(x0, x1, a, s);
+    case 2: return launch_f32<2>(x0, x1, a, s);
+    case 3: return launch_f32<3>(x0, x1, a, s);
+    case 4: return launch_f32<4>(x0, x1, a, s);
+    case 5: return launch_f32<5>(x0, x1, a, s);
+    case 6: return launch_f32<6>(x0, x1, a, s);
+    case 7: return launch_f32<7>(x0, x1, a, s);
+    case 8: return launch_f32<8>(x0, x1, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,9 @@ time by cp.async, the mix on the tensor cores, z out as 16-byte vectors).
 `tile_plan` mirrors the kernel's tiling and shared memory.
 
 Its backward is the plain version's (`runtime.PlainBackward`), as the JAX
-`custom_vjp` is its reference's VJP.
+`custom_vjp` is its reference's VJP. A float32 block goes to the float32
+entry (`ENTRIES`; ``csrc/dw_block_f32.cuh``): a simple FMA kernel with no
+bf16 rounding, as the plain version computes for float32.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ THREADS = 256
 CHUNK = THREADS // PATCHES  # channels of the halo staged at a time: an item a thread
 HALO_UNITS = 6           # 16-byte units of a halo row: columns x0 - 8 .. x0 + 39
 TAPS = 28                # fp32 per channel in shared memory: 25 taps, scale, shift, 0
+ENTRIES = {torch.bfloat16: "roma_dw_block_mm", torch.float32: "roma_dw_block_mm_f32"}
 
 
 @dataclass(frozen=True)
@@ -79,27 +82,32 @@ def dw5x5_affine_relu_mm_nchw(x, w, scale, shift, m, bias):
 
 
 @functools.cache
-def _kernel():
+def _kernel(symbol: str = ENTRIES[torch.bfloat16]):
     lib = runtime.load(NAME)
-    fn = lib.roma_dw_block_mm
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = getattr(lib, symbol)
+    n_int = 4 if symbol == ENTRIES[torch.float32] else 5  # no shared-memory size
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def dw5x5_affine_relu_mm_cuda_nchw(x, w, scale, shift, m, bias):
+    symbol = runtime.entry(NAME, ENTRIES, x.dtype)
     B, C, H, W = x.shape
     plan = tile_plan(B, C, H, W)  # raises for C outside 1..160
     dev = x.device
-    runtime.require(NAME, x, (B, C, H, W), torch.bfloat16, dev)
-    runtime.require(NAME, w, (5, 5, C), torch.bfloat16, dev)
-    runtime.require(NAME, m, (C, C), torch.bfloat16, dev)
+    runtime.require(NAME, x, (B, C, H, W), x.dtype, dev)
+    runtime.require(NAME, w, (5, 5, C), x.dtype, dev)
+    runtime.require(NAME, m, (C, C), x.dtype, dev)
     for t in (scale, shift, bias):
         runtime.require(NAME, t, (C,), torch.float32, dev)
     z = torch.empty_like(x)
-    lib, fn = _kernel()
-    rc = fn(x.data_ptr(), z.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            m.data_ptr(), bias.data_ptr(), B, C, H, W, plan.smem_bytes, runtime.stream_handle(x))
+    lib, fn = _kernel(symbol)
+    args = [x.data_ptr(), z.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            m.data_ptr(), bias.data_ptr(), B, C, H, W]
+    if x.dtype == torch.bfloat16:
+        args.append(plan.smem_bytes)
+    rc = fn(*args, runtime.stream_handle(x))
     runtime.check(lib, NAME, rc)
     return z
 

@@ -10,7 +10,10 @@ see the note at the top of the CUDA source (bytes; persistent blocks walk
 TH x 32 pixel tiles, prefetching the next tile's halo by TMA, 4 x 4
 depthwise patches per thread, the C x C mix on the tensor cores).
 `tile_plan` mirrors the kernel's tile geometry and shared memory;
-`pack_params` lays the weights out as the kernel reads them.
+`pack_params` lays the weights out as the kernel reads them. A float32
+chain goes to the float32 entry (`ENTRIES`; ``csrc/dw_block_f32.cuh``), one
+simple FMA kernel a block with no bf16 rounding, as the plain version
+computes for float32.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ MAX_CHANNELS = 64
 TILE_W = 32          # output columns of a tile
 STAGE_W = TILE_W + 16  # staged halo row in bf16: 16-byte vectors from column x0 - 8
 TAPS = 28            # fp32 per channel: 25 taps (dy, dx order), scale, shift, 0
+ENTRIES = {torch.bfloat16: "roma_dw_block", torch.float32: "roma_dw_block_f32"}
 
 
 def padded_channels(C: int) -> int:
@@ -114,15 +118,21 @@ def chain_nchw(x, ws, scales, shifts, ms, biases):
 
 
 @functools.cache
-def _kernel():
+def _kernel(symbol: str = ENTRIES[torch.bfloat16]):
     lib = runtime.load(NAME)
-    fn = lib.roma_dw_block
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = getattr(lib, symbol)
+    if symbol == ENTRIES[torch.float32]:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def chain_cuda_nchw(x, ws, scales, shifts, ms, biases):
+    symbol = runtime.entry(NAME, ENTRIES, x.dtype)
+    if x.dtype == torch.float32:
+        return _chain_cuda_f32(symbol, x, ws, scales, shifts, ms, biases)
     B, C, H, W = x.shape
     N = ws.shape[0]
     plan = tile_plan(B, C, H, W)  # raises for C outside 1..64
@@ -141,6 +151,31 @@ def chain_cuda_nchw(x, ws, scales, shifts, ms, biases):
         dst = bufs[j % 2]
         rc = fn(src.data_ptr(), dst.data_ptr(), taps[j].data_ptr(), mt[j].data_ptr(),
                 bias[j].data_ptr(), B, C, H, W, plan.smem_bytes, stream)
+        runtime.check(lib, NAME, rc)
+        src = dst
+    return src
+
+
+def _chain_cuda_f32(symbol, x, ws, scales, shifts, ms, biases):
+    """The float32 chain: one launch of the float32 entry a block."""
+    B, C, H, W = x.shape
+    N = ws.shape[0]
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"{NAME}: needs 1 <= C <= {MAX_CHANNELS}, got {C}")
+    dev = x.device
+    runtime.require(NAME, x, (B, C, H, W), torch.float32, dev)
+    runtime.require(NAME, ws, (N, 5, 5, C), torch.float32, dev)
+    runtime.require(NAME, ms, (N, C, C), torch.float32, dev)
+    for t in (scales, shifts, biases):
+        runtime.require(NAME, t, (N, C), torch.float32, dev)
+    lib, fn = _kernel(symbol)
+    stream = runtime.stream_handle(x)
+    bufs = [torch.empty_like(x), torch.empty_like(x)]
+    src = x
+    for j in range(N):
+        dst = bufs[j % 2]
+        rc = fn(src.data_ptr(), dst.data_ptr(), ws[j].data_ptr(), scales[j].data_ptr(),
+                shifts[j].data_ptr(), ms[j].data_ptr(), biases[j].data_ptr(), B, C, H, W, stream)
         runtime.check(lib, NAME, rc)
         src = dst
     return src

@@ -9,7 +9,9 @@ gathering its corners, and from r = 5, for 8 x 8 tiles whose window box is
 small enough, the box staged in chunks and the tile's scores one GEMM on
 the tensor cores; one kernel below r = 5, three in turn on the caller's
 stream from r = 5, each call counted as one launch of the wrapper).
-`tile_plan` mirrors the kernels' choice of path per tile.
+`tile_plan` mirrors the kernels' choice of path per tile. Float32 features
+go to the float32 entry (`ENTRIES`): the per-pixel kernel at every radius,
+so every float32 tile takes the per-pixel path.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ TILE = 8             # tile side in pixels
 SHARE_MIN_R = 5      # shared-window path iff radius >= SHARE_MIN_R and
 SHARE_U = 4          #   SHARE_U * U <= SHARE_CORNERS * corners
 SHARE_CORNERS = 1
+ENTRIES = {torch.bfloat16: "roma_local_corr", torch.float32: "roma_local_corr_f32"}
 
 
 def use_kernel(radius: int, channels: int, *inputs: torch.Tensor) -> bool:
@@ -51,12 +54,13 @@ class TilePlan:
     shared: torch.Tensor
 
 
-def tile_plan(flow: torch.Tensor, radius: int) -> TilePlan:
+def tile_plan(flow: torch.Tensor, radius: int, dtype: torch.dtype = torch.bfloat16) -> TilePlan:
     """The kernel's rule, on a (B, H, W, 2) flow: each pixel's window of
     (2r+2)^2 corners from `corner_coords`, clipped to the image; per tile,
     the union's bounding box and the corner count; the shared-window path
-    iff radius >= SHARE_MIN_R, U > 0 and SHARE_U * U <= SHARE_CORNERS *
-    corners (why only from r = 5: the note atop csrc/local_corr.cu)."""
+    iff the features are bf16, radius >= SHARE_MIN_R, U > 0 and SHARE_U * U
+    <= SHARE_CORNERS * corners (why only from r = 5: the note atop
+    csrc/local_corr.cu)."""
     B, H, W, _ = flow.shape
     K2 = 2 * radius + 2
     x0, y0, _, _ = corner_coords(flow, H, W, radius)
@@ -78,15 +82,16 @@ def tile_plan(flow: torch.Tensor, radius: int) -> TilePlan:
     h = tiles(yb, -big, torch.amax) - tiles(ya, big, torch.amin) + 1
     union = torch.where(corners > 0, w * h, torch.zeros_like(corners))
     shared = (union > 0) & (SHARE_U * union <= SHARE_CORNERS * corners)
-    shared &= radius >= SHARE_MIN_R
+    shared &= radius >= SHARE_MIN_R and dtype == torch.bfloat16
     return TilePlan(corners, union, shared)
 
 
 def local_correlation(
     f0: torch.Tensor, f1: torch.Tensor, radius: int, flow: torch.Tensor
 ) -> torch.Tensor:
-    """(B,H,W,C) bf16 x2 + flow (B,H,W,2) -> (B,H,W,(2r+1)^2) float32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    """(B,H,W,C) bf16 or float32 x2 + flow (B,H,W,2) -> (B,H,W,(2r+1)^2)
+    float32. CPU tensors take the plain version; CUDA tensors launch the
+    kernel's entry for their dtype."""
     if f0.device.type == "cpu":
         return local_correlation_plain(f0, f1, radius, flow)
     return local_correlation_cuda(f0, f1, radius, flow)
@@ -98,20 +103,22 @@ def local_correlation_cuda(
 ) -> torch.Tensor:
     """The kernel. `tile_paths`, an int32 (B, ceil(H/8), ceil(W/8)) tensor,
     receives 1 for each tile that took the shared-window path, 0 else: from
-    r = 5 the per-pixel kernel writes it and the shared-window kernel reads
-    it (allocated here when None)."""
+    r = 5 the bf16 per-pixel kernel writes it and the shared-window kernel
+    reads it (allocated here when None); the float32 entry fills it with 0."""
+    symbol = runtime.entry(NAME, ENTRIES, f0.dtype)
+    f32 = f0.dtype == torch.float32
     B, H, W, C = f0.shape
     if C % 128 != 0 or C > 1024 or not 0 <= radius <= MAX_RADIUS:
         raise ValueError(f"{NAME}: needs C % 128 == 0, C <= 1024, r <= 7 (C={C}, r={radius})")
     dev = f0.device
-    runtime.require(NAME, f0, (B, H, W, C), torch.bfloat16, dev)
-    runtime.require(NAME, f1, (B, H, W, C), torch.bfloat16, dev)
+    runtime.require(NAME, f0, (B, H, W, C), f0.dtype, dev)
+    runtime.require(NAME, f1, (B, H, W, C), f0.dtype, dev)
     runtime.require(NAME, flow, (B, H, W, 2), torch.float32, dev)
     if f0.data_ptr() % 16 or f1.data_ptr() % 16:
         raise ValueError(f"{NAME}: features must be 16-byte aligned")
     tiles = (B, -(-H // TILE), -(-W // TILE))
     scores = None
-    if radius >= SHARE_MIN_R:  # room for the shared tiles' corner scores
+    if radius >= SHARE_MIN_R and not f32:  # room for the shared tiles' corner scores
         scores = torch.empty((B, H, W, (2 * radius + 2) ** 2), dtype=torch.float32, device=dev)
         if tile_paths is None:
             tile_paths = torch.empty(tiles, dtype=torch.int32, device=dev)
@@ -121,12 +128,15 @@ def local_correlation_cuda(
     out = torch.empty((B, H, W, k * k), dtype=torch.float32, device=dev)
     scale = (1.0 / torch.sqrt(torch.tensor(float(C), dtype=torch.float32))).item()
     lib = runtime.load(NAME)
-    fn = lib.roma_local_corr
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn = getattr(lib, symbol)
+    n_ptr = 5 if f32 else 6  # the float32 entry has no score buffer
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(f0.data_ptr(), f1.data_ptr(), flow.data_ptr(), out.data_ptr(),
-            None if tile_paths is None else tile_paths.data_ptr(),
-            None if scores is None else scores.data_ptr(),
-            B, H, W, C, radius, scale, runtime.stream_handle(f0))
+    ptrs = [f0.data_ptr(), f1.data_ptr(), flow.data_ptr(), out.data_ptr(),
+            None if tile_paths is None else tile_paths.data_ptr()]
+    if not f32:
+        ptrs.append(None if scores is None else scores.data_ptr())
+    rc = fn(*ptrs, B, H, W, C, radius, scale, runtime.stream_handle(f0))
     runtime.check(lib, NAME, rc)
     return out

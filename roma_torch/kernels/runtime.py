@@ -9,13 +9,15 @@ never loaded. Nothing here runs at import
 time: the package imports on machines without ``nvcc`` or a GPU.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
-and nowhere else. No kernel has a backward of its own: `grad_needed` is the
-gates' test for a forward that autograd records (the kernels of local
-correlation, the chained blocks, the windowed gather and the correlation
-softmax then give way to their plain versions, as the JAX package routes
-them only when not training), and `PlainBackward` differentiates attention
-and the depthwise blocks through their plain versions, as the JAX
-package's custom_vjp's do.
+and nowhere else; ``flash_attn_bwd.cu`` holds two kernels, counted apart as
+``flash_attn_dkv`` (K8) and ``flash_attn_dq`` (K9). Attention has a
+backward of its own (those two kernels, `kernels/attention.py`). Of the
+rest, `grad_needed` is the gates' test for a forward that autograd records
+(the kernels of local correlation, the chained blocks, the windowed gather
+and the correlation softmax then give way to their plain versions, as the
+JAX package routes them only when not training), and `PlainBackward`
+differentiates the depthwise blocks through their plain versions, as the
+JAX package's custom_vjp's do.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ SOURCES = {
     "windowed_sample": "windowed_sample.cu",
     "dw_affine_relu": "dw_affine_relu.cu",
     "dw_block_mm": "dw_block_mm.cu",
+    "flash_attn_bwd": "flash_attn_bwd.cu",
 }
 
 NVCC_FLAGS = [
@@ -51,7 +54,9 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # registers, shared memory and spills, in build()'s report
 ]
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+# launch counters: one a source, but flash_attn_bwd.cu's two kernels apart
+COUNTERS = [n for n in SOURCES if n != "flash_attn_bwd"] + ["flash_attn_dkv", "flash_attn_dq"]
+LAUNCHES: dict[str, int] = {name: 0 for name in COUNTERS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -125,10 +130,20 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise if the launch failed, else count it under `name`."""
     if rc != 0:
         msg = lib.roma_error_string(rc).decode()
         raise RuntimeError(f"roma_torch kernel {name}: launch failed: {msg} ({rc})")
     LAUNCHES[name] += 1
+
+
+def entry(name: str, entries: dict, dtype: torch.dtype) -> str:
+    """The C entry a wrapper launches for `dtype` (one of `entries`, dtype ->
+    symbol); any other dtype raises, so that a wrapper never casts."""
+    if dtype not in entries:
+        kinds = ", ".join(str(d) for d in entries)
+        raise TypeError(f"roma_torch kernel {name}: takes {kinds}, got {dtype}")
+    return entries[dtype]
 
 
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:

@@ -4,13 +4,27 @@ Parameters are stored in float32 (the checkpoint layout); each layer casts
 its weights to the compute dtype at call time, as the JAX package's
 ``param_dtype=float32, dtype=bf16`` layers do. Normalisations run in
 float32.
+
+Training BatchNorm (`batch_norm_train`) follows the JAX package's two
+conventions, neither of which is ``F.batch_norm(training=True)``'s: both
+normalise with the biased batch variance E[x^2] - E[x]^2; flax's
+``nn.BatchNorm(momentum=0.9)`` (VGG, the decoder's projections) tracks the
+biased variance, the refiner's `DWBlock` (momentum 0.99) the unbiased one,
+and both move a statistic as ``m * old + (1 - m) * batch``. Under
+activation checkpointing the forward runs twice; `checkpoint` freezes the
+running statistics during the recompute, so that one step moves each
+statistic once, as flax's remat does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -29,6 +43,55 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """Inference BatchNorm (running statistics) in float32, NCHW."""
     return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
                         bn.bias, False, 0.0, bn.eps)
+
+
+_STATS = threading.local()  # .frozen: a checkpoint's recompute is running
+
+
+@contextlib.contextmanager
+def frozen_stats():
+    """Running statistics are not moved inside (a checkpoint's recompute)."""
+    prev = getattr(_STATS, "frozen", False)
+    _STATS.frozen = True
+    try:
+        yield
+    finally:
+        _STATS.frozen = prev
+
+
+def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, momentum: float,
+                     unbiased_running_var: bool) -> torch.Tensor:
+    """Training BatchNorm in float32, NCHW: normalise with the batch mean and
+    the biased batch variance max(E[x^2] - E[x]^2, 0) (the flax and DWBlock
+    formulas agree but for the clip, which only a negative rounding can
+    reach), then move the running statistics as ``momentum * old +
+    (1 - momentum) * batch``, the variance Bessel-corrected (n / (n - 1))
+    when `unbiased_running_var`; not inside `frozen_stats`. `momentum` is
+    the JAX package's (flax) convention: torch's is 1 - momentum."""
+    y = x.float()
+    axes = (0, 2, 3)
+    mean = y.mean(axes)
+    var = ((y * y).mean(axes) - mean * mean).clamp(min=0.0)
+    if not getattr(_STATS, "frozen", False):
+        with torch.no_grad():
+            n = y.numel() // y.shape[1]
+            tracked = var * (n / max(n - 1, 1)) if unbiased_running_var else var
+            bn.running_mean.copy_(momentum * bn.running_mean + (1 - momentum) * mean)
+            bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * tracked)
+    inv = torch.rsqrt(var + bn.eps)
+    if bn.weight is not None:
+        inv = inv * bn.weight
+    out = (y - mean[:, None, None]) * inv[:, None, None]
+    return out if bn.bias is None else out + bn.bias[:, None, None]
+
+
+def checkpoint(fn, *args):
+    """`fn(*args)` with its activations recomputed in backward
+    (torch.utils.checkpoint, non-reentrant), the recompute inside
+    `frozen_stats`: the running statistics move once, in the forward."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), frozen_stats()))
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,16 @@ Module names follow the reference RoMa state_dict (``encoder.cnn``,
 ``encoder.dinov2``, ``decoder.embedding_decoder``, ``decoder.gps.16``,
 ``decoder.proj.{s}``, ``decoder.conv_refiner.{s}``). Images enter as
 (B, H, W, 3) and flows/certainties leave as (B, H, W, 2|1), as in the JAX
-package; features are NCHW in between. Inference only.
+package; features are NCHW in between.
+
+Train mode is PyTorch's ``model.train()``, which stands for the JAX
+package's ``train=True``: VGG and the decoder's projections normalise with
+batch statistics and move their running statistics, VGG runs under
+activation checkpointing (flax's ``nn.remat``), DINOv2 stays frozen
+(no_grad, its output detached), the refiners take their training paths,
+flow and certainty are detached between scales, and `corresps` also carry
+``gm_cls``, ``gm_certainty`` (scale 16), ``flow_pre_delta`` and
+``delta_flow`` (every refined scale), as the loss reads them.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ from roma_torch.device import resolve_device
 from roma_torch.models import api
 from roma_torch.models.dinov2 import DinoViT
 from roma_torch.models.gp import GP
-from roma_torch.models.layers import batch_norm, conv2d
+from roma_torch.models.layers import batch_norm, batch_norm_train, checkpoint, conv2d
 from roma_torch.models.refiner import ConvRefiner
 from roma_torch.models.transformer import TransformerDecoder
 from roma_torch.models.vgg import VGG19
@@ -51,13 +60,18 @@ class CNNandDinov2(nn.Module):
         self.cnn = VGG19(dtype=dt)
         self.dinov2 = DinoViT(embed_dim=cfg.dinov2_dim, depth=cfg.dinov2_depth,
                               num_heads=cfg.dinov2_heads, dtype=dt)
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def forward(self, x: torch.Tensor, coarse: bool = True) -> dict[int, torch.Tensor]:
         with record_function("roma.vgg"):
-            pyramid = self.cnn(x)
+            if self.training and torch.is_grad_enabled():
+                pyramid = checkpoint(self.cnn, x)  # recomputed in backward
+            else:
+                pyramid = self.cnn(x)
         if coarse:
-            with record_function("roma.dinov2"):
-                pyramid[16] = self.dinov2(x).permute(0, 3, 1, 2)
+            # frozen: no graph is recorded and nothing flows back into it
+            with record_function("roma.dinov2"), torch.no_grad():
+                pyramid[16] = self.dinov2(x).permute(0, 3, 1, 2).detach()
         return pyramid
 
 
@@ -85,10 +99,13 @@ class Decoder(nn.Module):
                            smooth_warp=cfg.smooth_warp_gather)
             for s, rc in cfg.refiners.items()
         })
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def _proj(self, s: str, x: torch.Tensor) -> torch.Tensor:
         conv, bn = self.proj[s]
         y = conv2d(conv, x, self.dtype)
+        if self.training:
+            return batch_norm_train(bn, y, 0.9, False).to(y.dtype)
         return batch_norm(bn, y).to(y.dtype)
 
     def forward(
@@ -117,9 +134,11 @@ class Decoder(nn.Module):
             flow = interpolate_bilinear(flow, (h_c, w_c))
             certainty = interpolate_bilinear(certainty, (h_c, w_c))
 
+        train = self.training
         corresps: dict[int, dict[str, torch.Tensor]] = {}
         for s in scales:
             ins = int(s)
+            out: dict[str, torch.Tensor] = {}
             f1_s = self._proj(s, f1[ins])
             f2_s = self._proj(s, f2[ins])
 
@@ -130,12 +149,18 @@ class Decoder(nn.Module):
                 with record_function("roma.match_decoder"):
                     gm_cls, certainty = self.embedding_decoder(gp_posterior, a_hw)
                     flow = cls_to_flow_refine(gm_cls)
+                if train:
+                    out.update(gm_cls=gm_cls, gm_certainty=certainty)
 
             if s in self.conv_refiner:
+                if train:
+                    out["flow_pre_delta"] = flow
                 with record_function(f"roma.refiner{s}"):
                     delta_flow, delta_cert = self.conv_refiner[s](
                         f1_s, f2_s, flow, scale_factor=scale_factor
                     )
+                if train:
+                    out["delta_flow"] = delta_flow
                 # displacement in normalized units: ins * delta / (refine_init * full_res)
                 disp = ins * torch.stack(
                     [delta_flow[..., 0] / (c.refine_init * w_full),
@@ -144,11 +169,12 @@ class Decoder(nn.Module):
                 flow = flow + disp
                 certainty = certainty + delta_cert
 
-            corresps[ins] = {"flow": flow, "certainty": certainty}
+            corresps[ins] = dict(out, flow=flow, certainty=certainty)
             if s != "1":
                 nh, nw = sizes[ins // 2]
-                flow = interpolate_bilinear(flow, (nh, nw))
-                certainty = interpolate_bilinear(certainty, (nh, nw))
+                # detached between scales, in every mode, as in the JAX package
+                flow = interpolate_bilinear(flow, (nh, nw)).detach()
+                certainty = interpolate_bilinear(certainty, (nh, nw)).detach()
         return corresps
 
 
@@ -160,6 +186,7 @@ class RomaModel(nn.Module):
         self.cfg = cfg
         self.encoder = CNNandDinov2(cfg)
         self.decoder = Decoder(cfg)
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def forward(
         self,

@@ -1,4 +1,4 @@
-"""ConvRefiner: per-scale warp refinement CNN (inference).
+"""ConvRefiner: per-scale warp refinement CNN.
 
 Per scale it warps B's features to A by the current flow, embeds the
 displacement from the identity grid (1x1 conv, gain 40/32 * scale_factor),
@@ -7,9 +7,17 @@ block1 + N hidden depthwise-separable blocks (k=5 grouped conv -> BN ->
 ReLU -> 1x1 conv, BN folded into a scale/shift at inference), and emits
 (delta_flow, delta_certainty) from a float32 1x1 head.
 
-Kernel gates (every one also requires that autograd is not recording
-through the kernel, `runtime.grad_needed`, as the JAX package's gates
-require `not train`):
+Train mode (``model.train()``, the JAX package's ``train=True``): every
+block takes the unfused path, grouped conv -> batch-statistics BN
+(momentum 0.99, the running variance unbiased) -> ReLU -> 1x1 conv, each
+block under activation checkpointing with its statistics moved once; no
+kernel below runs (K4 folds running statistics, so it cannot). The local
+correlation's f1 and flow are detached, in either mode, as in the JAX
+package.
+
+Kernel gates (every one also requires eval mode and that autograd is not
+recording through the kernel, `runtime.grad_needed`, as the JAX package's
+gates require `not train`):
 - local correlation goes to the local-correlation kernel for r <= 7 and
   C % 128 == 0 (scales 16/8/4), as in the JAX package;
 - a narrow stack (hidden_dim < 64, k = 5, input width == hidden_dim: the
@@ -36,7 +44,7 @@ import torch.nn as nn
 from roma_torch.kernels import dw_affine_relu, dw_chain, runtime
 from roma_torch.kernels import local_corr as local_corr_kernel
 from roma_torch.kernels.windowed_sample import grid_sample_smooth_nchw
-from roma_torch.models.layers import conv2d
+from roma_torch.models.layers import batch_norm_train, checkpoint, conv2d
 from roma_torch.ops.corr import coord_grid
 from roma_torch.ops.grid_sample import grid_sample_nchw
 from roma_torch.ops.local_corr import local_correlation
@@ -54,6 +62,7 @@ class DWBlock(nn.Sequential):
             nn.ReLU(inplace=True),
             nn.Conv2d(features, features, 1),
         )
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def fused(self, dtype: torch.dtype):
         """Inference-folded tensors: dw kernel (k,k,C) in `dtype`, BN-folded
@@ -68,6 +77,10 @@ class DWBlock(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
+        if self.training:
+            conv, bn, _, conv2 = self
+            y = batch_norm_train(bn, conv2d(conv, x, dt), 0.99, True)
+            return conv2d(conv2, torch.relu(y).to(dt), dt)
         w, inv, shift, _, _ = self.fused(dt)
         if w.shape[0] == 5:
             y = dw_affine_relu.dw5x5_affine_relu_nchw(x.contiguous(), w.contiguous(), inv, shift)
@@ -96,6 +109,7 @@ class ConvRefiner(nn.Module):
             *[DWBlock(hidden_dim, kernel_size) for _ in range(hidden_blocks)]
         )
         self.out_conv = nn.Conv2d(hidden_dim, 3, 1)
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def blocks(self) -> list[DWBlock]:
         return [self.block1, *self.hidden_blocks]
@@ -111,7 +125,8 @@ class ConvRefiner(nn.Module):
         Returns (delta_flow (B,H,W,2), delta_certainty (B,H,W,1)) float32."""
         dt = self.dtype
         B, C, H, W = x.shape
-        if self.smooth_warp and not runtime.grad_needed(y, flow):
+        train = self.training
+        if self.smooth_warp and not train and not runtime.grad_needed(y, flow):
             mode = "fast" if self.smooth_warp == "fast" else "exact"
             x_hat = grid_sample_smooth_nchw(y, flow, mode).to(dt)
         else:
@@ -123,16 +138,19 @@ class ConvRefiner(nn.Module):
         r = self.local_corr_radius
         if r is not None:
             f0 = x.to(dt).permute(0, 2, 3, 1).contiguous()
-            f1 = y.to(dt).permute(0, 2, 3, 1).contiguous()
-            fl = flow.float().contiguous()
-            if local_corr_kernel.use_kernel(r, C, f0, f1, fl):
+            f1 = y.detach().to(dt).permute(0, 2, 3, 1).contiguous()
+            fl = flow.detach().float().contiguous()
+            if not train and local_corr_kernel.use_kernel(r, C, f0, f1, fl):
                 corr = local_corr_kernel.local_correlation(f0, f1, r, fl)
             else:
                 corr = local_correlation(f0, f1, r, fl)
             parts.append(corr.to(dt).permute(0, 3, 1, 2))
         d = torch.cat(parts, dim=1)
 
-        if self.use_chain(d.shape[1]) and not runtime.grad_needed(
+        if train:
+            for blk in self.blocks():
+                d = checkpoint(blk, d) if torch.is_grad_enabled() else blk(d)
+        elif self.use_chain(d.shape[1]) and not runtime.grad_needed(
                 d, *(p for blk in self.blocks() for p in blk.parameters())):
             cols = [blk.fused(dt) for blk in self.blocks()]
             d = dw_chain.chain_nchw(

@@ -1,7 +1,11 @@
 """ViT building blocks and the match decoder, token-major (B, N, C).
 
 `Attention` runs the flash-attention kernel on CUDA tensors
-(`roma_torch/kernels/attention.py`) and its plain version on CPU tensors.
+(`roma_torch/kernels/attention.py`) and its plain version on CPU tensors;
+where autograd records (the match decoder in training), the kernel also
+saves each row's log-sum-exp and the backward runs the dK/dV and dQ
+kernels. The views of the fused qkv projection go to the kernels as they
+are.
 LayerNorms run in float32 (eps 1e-6, as the JAX package's flax default);
 GELU is exact. Parameter names follow the reference DINOv2 / RoMa layout
 (norm1, attn.qkv, attn.proj, norm2, mlp.fc1, mlp.fc2, ls1.gamma, ls2.gamma).

@@ -3,7 +3,9 @@
 The layer list is torchvision's ``vgg19_bn().features[:40]`` (conv, BN,
 ReLU, ..., max-pool), so the state_dict keys are the reference RoMa's
 ``encoder.cnn.layers.{idx}``. The pyramid records the activation before
-each max-pool; BN runs in inference mode, in float32.
+each max-pool; BN runs in float32, on running statistics in eval mode and
+on batch statistics in train mode (`batch_norm_train`, flax's
+``BatchNorm(momentum=0.9)``, as the JAX package's VGG19).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from roma_torch.models.layers import batch_norm, conv2d
+from roma_torch.models.layers import batch_norm, batch_norm_train, conv2d
 
 # convs per stage, channels per stage (VGG-19 cfg E through block4)
 _STAGES = [(2, 64), (2, 128), (4, 256), (4, 512)]
@@ -30,6 +32,7 @@ class VGG19(nn.Module):
                 in_c = ch
             layers.append(nn.MaxPool2d(2, 2))
         self.layers = nn.Sequential(*layers)
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def forward(self, x: torch.Tensor) -> dict[int, torch.Tensor]:
         """(B, 3, H, W) -> {scale: (B, C, H/scale, W/scale)} in self.dtype."""
@@ -48,7 +51,8 @@ class VGG19(nn.Module):
             elif isinstance(layer, nn.Conv2d):
                 x = conv2d(layer, x, dt)
             elif isinstance(layer, nn.BatchNorm2d):
-                x = batch_norm(layer, x)
+                x = (batch_norm_train(layer, x, 0.9, False) if self.training
+                     else batch_norm(layer, x))
             else:
                 x = torch.relu(x).to(dt)
         return feats

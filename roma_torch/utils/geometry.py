@@ -48,3 +48,57 @@ def cls_to_flow_refine(cls: torch.Tensor) -> torch.Tensor:
     neigh_c = G[idx]  # (..., 5, 2)
     flow = (neigh_p[..., None] * neigh_c).sum(dim=-2)
     return flow / neigh_p.sum(dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# depth-consistent GT warp (training supervision)
+# ---------------------------------------------------------------------------
+
+def warp_kpts(kpts0, depth0, depth1, T_0to1, K0, K1,
+              relative_depth_error_threshold: float = 0.05):
+    """Warp normalized kpts0 (N, L, 2) from image 0 to image 1 by depth and
+    pose: bilinear depth lookup at the keypoint, unproject with K0, rigid
+    transform by T_0to1 ((N, 4, 4) or (N, 3, 4)), project with K1, then
+    keep (a) nonzero source depth, (b) in-bounds target, (c) relative depth
+    consistency < threshold against a bilinear target-depth lookup.
+
+    All of it is float32: the JAX package computes in float64 only when
+    jax_enable_x64 is set, and in float32 otherwise (its tests' and its
+    training's configuration), which is what this computes. Returns
+    (valid (N, L) bool, warped kpts (N, L, 2) float32)."""
+    from roma_torch.ops.grid_sample import grid_sample
+
+    n, h, w = depth0.shape
+    f32 = torch.float32
+    kpts0 = kpts0.to(f32)
+    kpts0_depth = grid_sample(depth0[..., None].to(f32), kpts0[:, :, None])[:, :, 0, 0]
+    nonzero_mask = kpts0_depth != 0
+
+    kpts0_px = torch.stack((w * (kpts0[..., 0] + 1) / 2, h * (kpts0[..., 1] + 1) / 2), -1)
+    kpts0_h = torch.cat([kpts0_px, torch.ones_like(kpts0_px[..., :1])], -1) * kpts0_depth[..., None]
+    kpts0_cam = torch.linalg.inv(K0.to(f32)) @ kpts0_h.transpose(-1, -2)
+    w_kpts0_cam = T_0to1[:, :3, :3].to(f32) @ kpts0_cam + T_0to1[:, :3, 3:4].to(f32)
+    w_depth_computed = w_kpts0_cam[:, 2, :]
+
+    w_kpts0_h = (K1.to(f32) @ w_kpts0_cam).transpose(-1, -2)  # (N, L, 3)
+    w_kpts0_px = w_kpts0_h[..., :2] / (w_kpts0_h[..., 2:3] + 1e-4)
+
+    h1, w1 = depth1.shape[1:3]
+    covisible = ((w_kpts0_px[..., 0] > 0) & (w_kpts0_px[..., 0] < w1 - 1)
+                 & (w_kpts0_px[..., 1] > 0) & (w_kpts0_px[..., 1] < h1 - 1))
+    w_kpts0 = torch.stack((2 * w_kpts0_px[..., 0] / w1 - 1, 2 * w_kpts0_px[..., 1] / h1 - 1), -1)
+    w_depth_sampled = grid_sample(depth1[..., None].to(f32), w_kpts0[:, :, None])[:, :, 0, 0]
+    rel_err = ((w_depth_sampled - w_depth_computed) / w_depth_sampled).abs()
+    consistent = rel_err < relative_depth_error_threshold
+    return nonzero_mask & covisible & consistent, w_kpts0
+
+
+def get_gt_warp(depth1, depth2, T_1to2, K1, K2, H: int, W: int,
+                relative_depth_error_threshold: float = 0.05):
+    """Dense GT warp + validity at (H, W): (x2 (B,H,W,2), prob (B,H,W)
+    float32)."""
+    B = depth1.shape[0]
+    grid = get_grid(B, H, W, device=depth1.device).reshape(B, H * W, 2)
+    mask, x2 = warp_kpts(grid, depth1, depth2, T_1to2, K1, K2,
+                         relative_depth_error_threshold=relative_depth_error_threshold)
+    return x2.reshape(B, H, W, 2), mask.float().reshape(B, H, W)

@@ -23,7 +23,8 @@ def _asdict(cfg):
     return dataclasses.asdict(cfg)
 
 
-@pytest.mark.parametrize("name", ["RomaConfig", "GPConfig", "TinyRomaConfig"])
+@pytest.mark.parametrize("name", ["RomaConfig", "GPConfig", "TinyRomaConfig", "TrainConfig",
+                                  "LossConfig", "MeshConfig"])
 def test_config_defaults_equal_jax(name):
     assert _asdict(getattr(tcfg, name)()) == _asdict(getattr(jcfg, name)())
 
@@ -55,7 +56,9 @@ def test_port_imports_no_jax_or_jax_package():
             "roma_torch/ops/band_corr.py", "roma_torch/ops/windowed_sample.py",
             "roma_torch/kernels/corr_softmax.py", "roma_torch/kernels/windowed_sample.py",
             "roma_torch/kernels/dw_affine_relu.py", "roma_torch/kernels/dw_block_mm.py",
-            "roma_torch/models/api.py"} <= names
+            "roma_torch/models/api.py", "roma_torch/losses/robust_loss.py",
+            "roma_torch/train/train.py", "roma_torch/train/checkpoint.py",
+            "roma_torch/train/logging.py", "roma_torch/train/grad_parity.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -77,7 +80,11 @@ def test_kernel_build_is_lazy_and_named_by_content():
     from roma_torch.kernels import LAUNCHES, reset_launches, runtime
 
     assert set(runtime.SOURCES) == {"local_corr", "dw_chain", "flash_attn", "corr_softmax",
-                                    "windowed_sample", "dw_affine_relu", "dw_block_mm"}
+                                    "windowed_sample", "dw_affine_relu", "dw_block_mm",
+                                    "flash_attn_bwd"}
+    # one counter a kernel: flash_attn_bwd.cu holds K8 and K9
+    assert set(LAUNCHES) == set(runtime.SOURCES) - {"flash_attn_bwd"} | {
+        "flash_attn_dkv", "flash_attn_dq"}
     for name, src in runtime.SOURCES.items():
         assert (runtime.CSRC / src).exists()
         p = runtime.lib_path(name)
@@ -89,7 +96,8 @@ def test_kernel_build_is_lazy_and_named_by_content():
     assert set(LAUNCHES.values()) == {0}
 
 
-@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh"])
+@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh", "attn_simple.cuh",
+                                    "dw_block_f32.cuh"])
 def test_kernel_names_change_with_any_header(tmp_path, monkeypatch, header):
     """A one-byte edit of any shared header renames every kernel's library,
     so no stale build is loaded; so does a change of the compiler flags."""
