@@ -60,10 +60,11 @@
    attention_bwd_plain in bf16 and float32 at the decoder's training shape
    (2, 1600, 8, 128) and DINOv2's (4, 1601, 16, 64) as qkv views and at
    ragged N, the forward's lse against logsumexp; a copy of the source with
-   a planted fault (K8 drops its last query tile, K9 the last tile's
-   block), built beside the main build, must exceed the bound >= 10x; the
-   kernels, the plain version and SDPA's whole backward timed, K3's forward
-   with and without lse;
+   a planted fault (K8 drops its last query tile, K9 the last query tile),
+   built beside the main build, must exceed the bound >= 10x; the kernels,
+   the whole attention_bwd_cuda call (di + K8 + K9), the plain version and
+   SDPA's whole backward timed, the launch's blocks per SM and waves
+   printed, K3's forward with and without lse;
 11. training: full-width roma_outdoor() at 560^2, batch 2, bf16, on
    synthetic depth batches, one warm-up and 3 timed steps, the first
    counted (K3 29, K8 5, K9 5; K1, K2, K4, K6 0), finite loss and metrics,
@@ -187,6 +188,24 @@ def graph_ms_rounds(fn, iters: int, rounds: int = 5) -> list[float]:
     out = sorted(cuda_ms(graph.replay, 2) / iters for _ in range(rounds))
     del graph
     return out
+
+
+def profiled_device_ms(fn, iters: int = 10) -> float:
+    """Device ms per call of `fn`: the kernels' own time in a torch.profiler
+    trace of `iters` calls (host time excluded), for a library call whose
+    host work can outlast its kernels (autograd), where CUDA events would
+    time the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages())
+    return us / 1e3 / iters
 
 
 def median(xs: list[float]) -> float:
@@ -1011,53 +1030,93 @@ def check_float32_entries(dev, gen, cfg, captured, model) -> dict:
 
 # ---------------------------------------------------------------- K8 / K9
 
-def _bwd_lib_call(lib, q, k, v, dout, lse, di, dtype_code):
+def bwd_lib_call(lib, q, k, v, dout, lse, di, dtype_code, which=("dkv", "dq"), outs=None):
     """(dq, dk, dv) from a library with flash_attn_bwd.cu's C entries,
-    outputs zero-filled first (the planted-fault copy leaves rows unset)."""
+    launching the kernels in `which` only, into `outs` (dq, dk, dv) or into
+    outputs zero-filled first (the planted-fault copy leaves rows unset).
+    No launch counter moves: this is the comparison's and the timing's
+    call (also kernel_variants.py's)."""
     import ctypes
 
     import torch
 
     B, N, H, d = q.shape
-    dq, dk, dv = (torch.zeros((B, N, H, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    if outs is None:
+        outs = tuple(torch.zeros((B, N, H, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    dq, dk, dv = outs
     st = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                   *dout.stride()[:3])
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, di)]
     tail = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                                  ctypes.c_int, ctypes.c_void_p]
-    for sym, outs in (("roma_flash_attn_bwd_dkv", (dk, dv)), ("roma_flash_attn_bwd_dq", (dq,))):
+    for kind, sym, res in (("dkv", "roma_flash_attn_bwd_dkv", (dk, dv)),
+                           ("dq", "roma_flash_attn_bwd_dq", (dq,))):
+        if kind not in which:
+            continue
         fn = getattr(lib, sym)
-        fn.argtypes = [ctypes.c_void_p] * (6 + len(outs)) + tail
+        fn.argtypes = [ctypes.c_void_p] * (6 + len(res)) + tail
         fn.restype = ctypes.c_int
-        rc = fn(*ptrs, *(t.data_ptr() for t in outs), B, N, H, d, st, 1.0 / math.sqrt(d),
+        rc = fn(*ptrs, *(t.data_ptr() for t in res), B, N, H, d, st, 1.0 / math.sqrt(d),
                 dtype_code, stream)
-        fail_if(rc != 0, f"planted-fault build: {sym} returned {rc}")
-    torch.cuda.synchronize()
+        fail_if(rc != 0, f"{sym} returned {rc}")
     return dq, dk, dv
 
 
+# where the planted fault goes in flash_attn_bwd.cu, each anchor once: the
+# bf16 (wgmma) K8 walks one query tile fewer and K9 launches one query tile's
+# block fewer; so do the float32 kernels
+PLANTED = (
+    ("const int m_tiles = (N + kQueryTile - 1) / kQueryTile;",
+     "const int m_tiles = (N + kQueryTile - 1) / kQueryTile - 1;"),
+    ("const dim3 grid((a.N + kBlockRows - 1) / kBlockRows, a.H, B);",
+     "const dim3 grid((a.N + kBlockRows - 1) / kBlockRows - (dkv ? 0 : 1), a.H, B);"),
+    ("for (int m0 = 0; m0 < N; m0 += kRows) {",
+     "for (int m0 = 0; m0 < ((N - 1) / kRows) * kRows; m0 += kRows) {"),
+    ("const dim3 grid((a.N + kRows - 1) / kRows, a.H, B);",
+     "const dim3 grid((a.N + kRows - 1) / kRows - (dkv ? 0 : 1), a.H, B);"),
+)
+
+
+def planted_source(src: str) -> str:
+    """flash_attn_bwd.cu with the planted fault: K8 drops its last query
+    tile, K9 the last query tile (in the bf16 and the float32 kernels)."""
+    for anchor, fault in PLANTED:
+        fail_if(src.count(anchor) != 1, f"planted fault: {anchor!r} is not in the source once")
+        src = src.replace(anchor, fault)
+    return src
+
+
 def start_planted_build(tmp: Path):
-    """Build a copy of flash_attn_bwd.cu with a planted fault, started
-    beside the main build: K8 drops its last query tile, K9 the last query
-    tile's block (in the bf16 and the float32 kernels alike)."""
+    """Build `planted_source` of flash_attn_bwd.cu, started beside the main
+    build."""
     import shutil
 
     from roma_torch.kernels import runtime
 
-    src = (runtime.CSRC / "flash_attn_bwd.cu").read_text()
-    dkv_loop = "for (int m0 = 0; m0 < N; m0 += kRows) {"
-    dq_grid = "const dim3 grid((a.N + kRows - 1) / kRows, a.H, B);"
-    fail_if(src.count(dkv_loop) != 2 or src.count(dq_grid) != 2,
-            "planted fault: the K8 loops or the K9 grids are not where they were")
-    src = src.replace(dkv_loop, "for (int m0 = 0; m0 < ((N - 1) / kRows) * kRows; m0 += kRows) {")
-    src = src.replace(dq_grid, "const dim3 grid((a.N + kRows - 1) / kRows - (dkv ? 0 : 1), a.H, B);")
     for h in runtime.CSRC.glob("*.cuh"):
         shutil.copy(h, tmp / h.name)
-    (tmp / "planted.cu").write_text(src)
+    (tmp / "planted.cu").write_text(planted_source((runtime.CSRC / "flash_attn_bwd.cu").read_text()))
     lib = tmp / "libplanted.so"
     cmd = [runtime.nvcc(), *runtime.NVCC_FLAGS, "-o", str(lib), str(tmp / "planted.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def bwd_grid(lib, B: int, N: int, H: int, d: int, dtype_code: int) -> dict:
+    """The launch that K8 and K9 of `lib` (a build of flash_attn_bwd.cu)
+    make for (B, N, H, d): blocks, blocks an SM holds at once, SMs and waves
+    (`roma_flash_attn_bwd_grid`)."""
+    import ctypes
+
+    fn = lib.roma_flash_attn_bwd_grid
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = {}
+    for name, dkv in (("flash_attn_dkv", 1), ("flash_attn_dq", 0)):
+        g = (ctypes.c_int * 3)()
+        fail_if(fn(B, N, H, d, dtype_code, dkv, g) != 0, "roma_flash_attn_bwd_grid failed")
+        out[name] = dict(blocks=g[0], blocks_per_sm=g[1], sms=g[2], waves=g[0] / (g[1] * g[2]))
+    return out
 
 
 # |kernel - plain| <= rel * |plain| + absn * M, M the largest plain gradient of the
@@ -1077,14 +1136,18 @@ def check_attention_bwd(dev, gen, cfg, planted) -> dict:
     P and dS are rounded to bf16 before their products, the gradients once
     at the end), float32 2e-6 M. Then the
     planted-fault build must exceed the bound >= 10x, and at the decoder's
-    training shape in bf16 the kernels, the plain version and SDPA's whole
-    backward are timed, with K3's forward with and without its lse."""
+    training shape in bf16 the kernels (each alone, through its C entry),
+    the whole `attention_bwd_cuda` call (di + K8 + K9), the plain version
+    and SDPA's whole backward (its device time by the profiler, and by CUDA
+    events) are timed, with K3's forward with and without
+    its lse, and the launch's blocks per SM and waves are read."""
     import ctypes
 
     import torch
     import torch.nn.functional as F
 
     from roma_torch.kernels import attention as at
+    from roma_torch.kernels import runtime
 
     failures, cases = [], []
 
@@ -1140,7 +1203,7 @@ def check_attention_bwd(dev, gen, cfg, planted) -> dict:
         q, k, v, dout = main[dtype]
         o, lse = at.attention_cuda(q, k, v, with_lse=True)
         ref = at.attention_bwd_plain(q, k, v, o, lse, dout)
-        got = _bwd_lib_call(lib, q, k, v, dout.contiguous(), lse, at.attention_di(o, dout), code)
+        got = bwd_lib_call(lib, q, k, v, dout.contiguous(), lse, at.attention_di(o, dout), code)
         rel, absn = BWD_TOL[str(dtype).split(".")[1]]
         M = max(r.abs().max().item() for r in ref)
         ratios = {name: ((g.float() - r).abs() / (rel * r.abs() + absn * M)).max().item()
@@ -1153,14 +1216,30 @@ def check_attention_bwd(dev, gen, cfg, planted) -> dict:
     q, k, v, dout = main[torch.bfloat16]
     o, lse = at.attention_cuda(q, k, v, with_lse=True)
     B, N, H, d = q.shape
-    dkv_ms = cuda_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout, ("dkv",)), 5)
-    dq_ms = cuda_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout, ("dq",)), 5)
+    # each kernel alone, through its C entry (no di, no allocation, no host
+    # work between launches beyond the ctypes call)
+    lib_main, di = runtime.load(at.BWD_NAME), at.attention_di(o, dout)
+    outs = tuple(torch.empty_like(q) for _ in range(3))
+    dkv_ms = cuda_ms_rounds(
+        lambda: bwd_lib_call(lib_main, q, k, v, dout, lse, di, 0, ("dkv",), outs), 20)
+    dq_ms = cuda_ms_rounds(
+        lambda: bwd_lib_call(lib_main, q, k, v, dout, lse, di, 0, ("dq",), outs), 20)
+    whole_ms = cuda_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout), 20)
+    # the same on the device alone (CUDA-graph replay: no host time between
+    # launches), and the plain di's share of it
+    whole_graph_ms = graph_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout), 20)
+    di_graph_ms = graph_ms_rounds(lambda: at.attention_di(o, dout), 20)
+    grid = bwd_grid(lib_main, B, N, H, d, 0)
     plain_ms = cuda_ms(lambda: at.attention_bwd_plain(q, k, v, o, lse, dout), 3, 1)
     leaves = [t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves)
     dout_t = dout.transpose(1, 2)
-    sdpa_ms = cuda_ms_rounds(
-        lambda: torch.autograd.grad(sdpa_out, leaves, dout_t, retain_graph=True), 5)
+    sdpa_call = lambda: torch.autograd.grad(sdpa_out, leaves, dout_t, retain_graph=True)
+    # SDPA's autograd call can take longer on the host than on the device
+    # (on an H100 80GB HBM3, CUDA events read 0.16-0.31 ms where its device time was ~0.145):
+    # its device time is the yardstick, its events reading is kept beside it
+    sdpa_events_ms = cuda_ms_rounds(sdpa_call, 20)
+    sdpa_ms = sorted(profiled_device_ms(sdpa_call) for _ in range(3))
     fwd_ms = cuda_ms_rounds(lambda: at.attention_cuda(q, k, v), 20)
     fwd_lse_ms = cuda_ms_rounds(lambda: at.attention_cuda(q, k, v, with_lse=True), 20)
     gemm = 2.0 * B * H * N * N * d
@@ -1177,8 +1256,12 @@ def check_attention_bwd(dev, gen, cfg, planted) -> dict:
                            tol="2^-7 |plain| + 8e-3 max|plain|",
                            ms=median(ms), ms_rounds=ms, plain_ms=plain_ms,
                            library_ms=median(sdpa_ms), library_ms_rounds=sdpa_ms,
-                           bound_ms=b_ms, bound_by=b_by)]
-    return dict(rows=rows, cases=cases, planted=planted_rows,
+                           library_events_ms_rounds=sdpa_events_ms,
+                           bound_ms=b_ms, bound_by=b_by, grid=grid[name])]
+    return dict(rows=rows, cases=cases, planted=planted_rows, whole_ms=median(whole_ms),
+                whole_ms_rounds=whole_ms, whole_graph_ms=median(whole_graph_ms),
+                di_graph_ms=median(di_graph_ms), sdpa_ms=median(sdpa_ms),
+                sdpa_events_ms=median(sdpa_events_ms), grid=grid,
                 fwd_ms=median(fwd_ms), fwd_lse_ms=median(fwd_lse_ms), fwd_ms_rounds=fwd_ms,
                 fwd_lse_ms_rounds=fwd_lse_ms)
 
@@ -1597,13 +1680,21 @@ def print_rows(card: str, rows: dict, name: str) -> None:
 
 def print_attention_bwd(card: str, bwd: dict) -> None:
     """K8/K9: the worst error of each case over its bound, the planted
-    fault's excess, K3's forward with and without its lse."""
+    fault's excess, the whole backward call beside SDPA's with the
+    launch's blocks per SM and waves, K3's forward with and without its
+    lse."""
     for c in bwd["cases"]:
         print(f"[{card}] flash_attn bwd {c['case']}: " + ", ".join(
             f"{n} err {c[n]['max_abs_err']:.3e} ({c[n]['worst_over_tol']:.3f} of tol)"
             for n in ("dq", "dk", "dv")) + f"; lse err {c['lse_max_abs_err']:.2e}", flush=True)
     print(f"[{card}] flash_attn bwd planted fault, error over the bound: "
           f"{json.dumps(bwd['planted'])}", flush=True)
+    print(f"[{card}] flash_attn bwd at the decoder's training shape: the whole "
+          f"attention_bwd_cuda call (di + K8 + K9) {bwd['whole_ms']:.4f} ms (device alone, "
+          f"graph replay: {bwd['whole_graph_ms']:.4f} ms, of which the plain di "
+          f"{bwd['di_graph_ms']:.4f}), SDPA's whole backward {bwd['sdpa_ms']:.4f} ms on the "
+          f"device ({bwd['sdpa_events_ms']:.4f} by CUDA events, host included); "
+          f"launches {json.dumps(bwd['grid'])}", flush=True)
     print(f"[{card}] flash_attn forward at the decoder's training shape: {bwd['fwd_ms']:.4f} ms "
           f"without lse, {bwd['fwd_lse_ms']:.4f} ms with lse", flush=True)
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Times builds of one kernel against each other on one GPU: local
-correlation (K1), the whole-block kernel (K5) or the windowed gather (K6).
+correlation (K1), the whole-block kernel (K5), the windowed gather (K6) or
+flash attention's backward (K8 and K9).
 
-    python3 kernel_variants.py {k1,k5,k6} SOURCE [SOURCE ...] [--out DIR]
+    python3 kernel_variants.py {k1,k5,k6,k89} SOURCE [SOURCE ...] [--out DIR]
 
-Each SOURCE is a `local_corr.cu` (k1), `dw_block_mm.cu` (k5) or
-`windowed_sample.cu` (k6): this checkout's own (roma_torch/csrc/),
+Each SOURCE is a `local_corr.cu` (k1), `dw_block_mm.cu` (k5),
+`windowed_sample.cu` (k6) or `flash_attn_bwd.cu` (k89): this checkout's
+own (roma_torch/csrc/),
 another checkout's, or an edited copy to compare (a design alternative, or
 an ablation that leaves a phase out), built with this checkout's nvcc
 flags and headers. Every source must have this checkout's C entry; a K5
@@ -18,12 +20,17 @@ chip_smoke.py's DW_BLOCK_MM_SHAPES; K6 on the scale-1 maps of both passes
 flow in "fast" and "exact" mode, and, once for all builds, the
 plain-torch plan and edge-padded grid copy that the first version of K6
 ran before each launch (`first_plan`; CUDA events, mean of 10 calls, host
-time included). Each build is checked
-against the plain version (a build that leaves work out reports its error
-and is timed all the same) and timed (K1: CUDA events, mean of 30 calls;
-K5: of 20; K6: the device time of a CUDA-graph replay of 20 calls, median
-of 5), in the order given and then in reverse; both readings are kept.
-Prints the ptxas register report of each build and one line per case;
+time included); K8 and K9, each alone, in bf16 at the match decoder's
+training shape (2, 1600, 8, 128) and DINOv2's (4, 1601, 16, 64), q, k and
+v as views of a fused qkv, with each build's launch (blocks, blocks an SM
+holds, SMs: `roma_flash_attn_bwd_grid`, where the build has it). Each
+build is checked against the plain version (a build that leaves work out
+reports its error and is timed all the same) and timed (K1: CUDA events,
+mean of 30 calls; K5 and K8/K9: of 20; K6: the device time of a CUDA-graph
+replay of 20 calls, median of 5), in the order given and then in reverse;
+both readings are kept.
+Prints the ptxas report of each build (registers, spills, performance
+notes) and one line per case;
 results go to DIR/<kernel>_variants.json. Exits non-zero without a GPU, or
 if a build fails or a launch returns an error.
 """
@@ -57,7 +64,7 @@ def build(sources, kernel):
         if proc.returncode:
             raise SystemExit(f"kernel_variants: build of {src} failed\n{text}")
         ptxas[str(src)] = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
-                           if "registers" in ln]
+                           if any(w in ln for w in ("registers", "spill", "Performance"))]
         libs.append(ctypes.CDLL(str(lib)))
     return libs, ptxas
 
@@ -181,6 +188,31 @@ def k6_cases(libs, sources, dev, gen):
                     lambda fn: chip_smoke.median(chip_smoke.graph_ms_rounds(fn, 20))
 
 
+def k89_cases(libs, sources, dev, gen):
+    import torch
+
+    import chip_smoke
+    from roma_torch.kernels import attention as at
+
+    for label, dims in (("decoder train", (2, 1600, 8, 128)), ("dinov2", (4, 1601, 16, 64))):
+        B, N, H, d = dims
+        qkv = torch.randn((B, N, 3, H, d), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        dout = torch.randn((B, N, H, d), generator=gen, device=dev).to(torch.bfloat16)
+        o, lse = at.attention_cuda(q, k, v, with_lse=True)
+        args = (q, k, v, dout, lse, at.attention_di(o, dout), 0)
+        ref = at.attention_bwd_plain(q, k, v, o, lse, dout)
+        outs = tuple(torch.empty_like(q) for _ in range(3))
+        for which, grads in (("dkv", (1, 2)), ("dq", (0,))):
+            errs = []
+            for lib in libs:
+                got = chip_smoke.bwd_lib_call(lib, *args, (which,))
+                errs.append(max((got[i].float() - ref[i]).abs().max().item() for i in grads))
+            yield f"{label} {list(dims)} {which}", errs, \
+                [lambda lib=lib, w=which: chip_smoke.bwd_lib_call(lib, *args, (w,), outs)
+                 for lib in libs], lambda fn: chip_smoke.cuda_ms(fn, 20)
+
+
 def k6_inputs(dev, gen):
     """(h, channels-last bf16 map (4, 9, h, h), {flow name: grid}) at both
     scale-1 shapes."""
@@ -216,7 +248,7 @@ def k6_first_plan(dev, gen):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("k1", "k5", "k6"))
+    ap.add_argument("kernel", choices=("k1", "k5", "k6", "k89"))
     ap.add_argument("sources", nargs="+", type=Path)
     ap.add_argument("--out", type=Path, default=ROOT / "results" / "kernel_variants")
     args = ap.parse_args()
@@ -236,7 +268,11 @@ def main() -> int:
     print(report["card"], flush=True)
     for src, regs in ptxas.items():
         print(f"{src}: {regs}", flush=True)
-    cases = {"k1": k1_cases, "k5": k5_cases, "k6": k6_cases}[args.kernel]
+    cases = {"k1": k1_cases, "k5": k5_cases, "k6": k6_cases, "k89": k89_cases}[args.kernel]
+    if args.kernel == "k89":  # each build's launch at the decoder's training shape
+        report["grids"] = [chip_smoke.bwd_grid(lib, 2, 1600, 8, 128, 0)
+                           if hasattr(lib, "roma_flash_attn_bwd_grid") else None for lib in libs]
+        print(f"launch at (2, 1600, 8, 128): {json.dumps(report['grids'])}", flush=True)
     n = len(libs)
     for label, errs, calls, timer in cases(libs, args.sources, dev, gen):
         ms = [[] for _ in range(n)]

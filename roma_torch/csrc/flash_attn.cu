@@ -396,30 +396,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
   }
 }
 
-// the (d, H, N, B) view of one of q, k, v as a TMA map with 64 x rows boxes
-int encode_map(CUtensorMap* map, const void* ptr, int B, int N, int H, int D, int rows,
-               const long long* st) {
-  EncodeTiledFn encode = encode_tiled_fn();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};  // bytes, for H, N, B
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidPitchValue;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, bf16* o, float* lse, int B, int N, int H,
            const long long* st, float scale_log2, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int rc = encode_map(&maps[i], ptrs[i], B, N, H, D, i == 0 ? Layout<D>::kBM : kRows,
-                              st + 3 * i);
+    const int rc = encode_bnhd_map(&maps[i], ptrs[i], B, N, H, D,
+                                   i == 0 ? Layout<D>::kBM : kRows, st + 3 * i);
     if (rc != 0) return rc;
   }
   const int smem = Layout<D>::kBytes;

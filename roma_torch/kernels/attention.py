@@ -8,10 +8,10 @@ saved residuals when differentiated) and the two kernels of its
 custom_vjp, ``_flash_attention_bwd_dkv`` (K8) and
 ``_flash_attention_bwd_dq`` (K9). Computes softmax(q k^T / sqrt(d)) v on
 (B, N, H, d), no mask. Bound and design: see the notes at the top of the
-CUDA sources (operations; the bf16 forward is TMA + wgmma with the logits
-kept on the SM; the bf16 backward kernels are FlashAttention-2-shaped on
-mma.sync; the float32 forward and backward are simple float32-FMA tiles of
-64 rows, ``csrc/attn_simple.cuh``).
+CUDA sources (operations; the bf16 forward and backward kernels are TMA +
+wgmma, FlashAttention-3-shaped, with the logits kept on the SM; the
+float32 forward and backward are simple float32-FMA tiles of 64 rows,
+``csrc/attn_simple.cuh``).
 
 `attention` is the entry: CPU tensors take the plain version (autograd
 differentiates it); on CUDA tensors a forward that autograd records goes
@@ -57,7 +57,8 @@ def attention_di(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     float64): computed outside the backward kernels, as the JAX package's
     backward computes it in XLA."""
     ct = runtime.compute_dtype(o)
-    return (o.to(ct) * dout.to(ct)).sum(-1).transpose(1, 2).contiguous()
+    # dout is cast inside the product (type promotion), not copied first
+    return (o.to(ct) * dout).sum(-1).transpose(1, 2).contiguous()
 
 
 def attention_bwd_plain(q, k, v, o, lse, dout):

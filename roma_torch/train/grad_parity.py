@@ -19,9 +19,14 @@ layer 11 lies on the other side of 0), so now and then one value crosses
 0 on one side only; that
 pixel's gradient passes on one side and not on the other, a change of
 about 1/sqrt(pixels) in the tensors it feeds. The port against itself
-shows the same: with the images moved by 1e-7, 69 of its 136 gradients
-that are not exact zeros move by more than GRAD_TOL * max|g| (56 in
-chip_smoke.py's configuration). Float64 on both sides would remove the
+shows the same: with the images moved by 1e-7, 67 to 69 of its 136
+gradients that are not exact zeros move by more than GRAD_TOL * max|g|
+(56 in chip_smoke.py's configuration). A tensor that its own envelope
+brings close to GRAD_TOL can cross it against JAX on one build of the CPU
+libraries and not on another, whatever the thread count: the scale-1
+refiner's first BatchNorm weight reads 9.3e-4 max|g| against itself, and
+against JAX 1.09e-3 on one build and under 1e-3 on another, so it is
+named. Float64 on both sides would remove the
 crossings, but the JAX package computes its BatchNorms in float32 whatever
 its dtype. Where no value crosses a kink, tests/test_torch_train.py holds
 the same modules to GRAD_TOL: the refiners in train mode against JAX, and
@@ -44,6 +49,7 @@ ZERO_GRAD_TOL = 1e-6  # a conv bias before a training BatchNorm
 KINK_SENSITIVE: dict[str, tuple[float, float, float]] = {
     "decoder.conv_refiner.1.block1.0.weight": (0.00036, 1.7e-06, 0.0014),
     "decoder.conv_refiner.1.block1.1.bias": (0.00052, 5.4e-06, 0.0017),
+    "decoder.conv_refiner.1.block1.1.weight": (0.0013, 2.7e-06, 0.001),
     "decoder.conv_refiner.1.disp_emb.weight": (0.0005, 3.7e-06, 0.0014),
     "decoder.conv_refiner.1.hidden_blocks.0.0.weight": (0.00078, 7.2e-06, 0.0015),
     "decoder.conv_refiner.2.block1.0.weight": (0.0019, 7e-06, 0.0055),
