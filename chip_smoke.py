@@ -73,7 +73,16 @@
    model's float32 train step on the GPU against the CPU (loss rel 1e-4,
    gradients under roma_torch.train.grad_parity, the rule
    tests/test_torch_train.py holds JAX and the port to);
-12. prints the kernels JSON line, then {"ok": true, "device": ...} last.
+12. Tiny RoMa training as its CLI composes it (roma_torch/experiments/
+   train_tiny_roma_v1_outdoor.py): full width, bf16, 768x1024, batch 8, a
+   data-parallel mesh of one rank over NCCL, a PairLoader over synthetic
+   depth batches, train_k_steps; one warm-up, one counted step (every
+   kernel 0 launches) under the sync debug mode "warn" (its synchronizing
+   calls reported), 3 timed steps; finite metrics with corr_volume_loss_8,
+   every running statistic moved, samples/s and peak memory; one step
+   through mesh= against the same step without it; a checkpoint round
+   trip;
+13. prints the kernels JSON line, then {"ok": true, "device": ...} last.
 
 Any failure exits non-zero before the last line. Detailed per-shape results
 go to DIR/chip_smoke.json (default results/chip_smoke/).
@@ -1269,18 +1278,22 @@ def check_attention_bwd(dev, gen, cfg, planted) -> dict:
 # ---------------------------------------------------------------- training
 
 def synthetic_depth_batch(gen, dev, B: int, hw: tuple[int, int]) -> dict:
-    """One batch of the dataset contract from a seeded generator, made on
-    the device: uniform images, depth 2 +- 0.3 with the top eighth missing,
+    """One batch of the dataset contract from a seeded generator, the images
+    and depths made on the device: uniform images, depth 2 +- 0.3 with the
+    top eighth missing,
     a 0.05 rad yaw and 5 cm baseline, focal 1.4 x the width."""
     import torch
 
     h, w = hw
     f = 1.4 * w
-    K = torch.tensor([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], device=dev).expand(B, 3, 3)
+    K = torch.tensor([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
     a = 0.05
-    T = torch.eye(4, device=dev)
+    T = torch.eye(4)
     T[0, 0], T[0, 2], T[2, 0], T[2, 2] = math.cos(a), math.sin(a), -math.sin(a), math.cos(a)
     T[0, 3] = 0.05
+    # made on the host, copied without a stream sync
+    K, T = (t.to(dev, non_blocking=True) for t in (K, T))
+    K = K.expand(B, 3, 3)
 
     def depth():
         d = 2.0 + 0.3 * (2 * torch.rand((B, h, w), generator=gen, device=dev) - 1)
@@ -1306,6 +1319,7 @@ def run_training(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
 
     from roma_torch.config import RomaConfig, TrainConfig
     from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.losses.robust_loss import robust_loss
     from roma_torch.models.zoo import build_model
     from roma_torch.train.train import make_roma_train_state, make_train_step
 
@@ -1313,7 +1327,7 @@ def run_training(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
     state = make_roma_train_state(TrainConfig(batch_size=TRAIN_BATCH), model=build_model(cfg, SEED),
                                   device=dev)
     model = state.model
-    step = make_train_step()
+    step = make_train_step(robust_loss)
     dino0 = {k: t.clone() for k, t in model.encoder.dinov2.state_dict().items()}
     stats0 = {k: t.clone() for k, t in model.state_dict().items()
               if k.endswith(("running_mean", "running_var")) and "dinov2" not in k}
@@ -1365,12 +1379,13 @@ def run_training(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
     return res
 
 
-def profile_train_step(step, state, batch, out_dir: Path) -> dict:
+def profile_train_step(step, state, batch, out_dir: Path, prefix: str = "roma.",
+                       table: str = "profile_train.txt") -> dict:
     """torch.profiler over one training step: wall time, device busy time
-    and share, the forward's labelled stages (`roma.*` ranges: device span
-    of the forward's kernels; the backward and a checkpoint's recompute run
-    outside them), the top kernels by device time (table in
-    out_dir/profile_train.txt)."""
+    and share, the forward's labelled stages (`prefix` ranges, `roma.*` or
+    `tiny.*`: device span of the forward's kernels; the backward and a
+    checkpoint's recompute run outside them), the top kernels by device
+    time (table in out_dir/`table`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1382,13 +1397,13 @@ def profile_train_step(step, state, batch, out_dir: Path) -> dict:
     events = prof.key_averages()
     dev_total = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
     dev_self = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-    ranges = ("roma.", "Optimizer.")  # labelled ranges, not kernels
+    ranges = (prefix, "Optimizer.")  # labelled ranges, not kernels
     stages = {e.key: dev_total(e) / 1e3 for e in events if e.key.startswith(ranges)}
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith(ranges)]
     busy_ms = sum(dev_self(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_self, reverse=True)[:25]
-    (out_dir / "profile_train.txt").write_text(
+    (out_dir / table).write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60))
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / (wall_s * 1e3), "stages_device_ms": stages,
@@ -1411,6 +1426,7 @@ def check_debug_train_step(dev, card: str) -> dict:
 
     from roma_torch.config import TrainConfig
     from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.losses.robust_loss import robust_loss
     from roma_torch.models.zoo import build_model, debug_roma_config
     from roma_torch.train.grad_parity import grad_mismatches
     from roma_torch.train.train import make_roma_train_state, make_train_step
@@ -1418,7 +1434,7 @@ def check_debug_train_step(dev, card: str) -> dict:
     cfg = dataclasses.replace(debug_roma_config(), dtype="float32")
     g = torch.Generator().manual_seed(SEED)
     batch = synthetic_depth_batch(g, "cpu", 1, cfg.coarse_resolution)
-    step = make_train_step()
+    step = make_train_step(robust_loss)
     out, grads = {}, {}
     for where in ("cpu", dev):
         state = make_roma_train_state(TrainConfig(batch_size=1), model=build_model(cfg, SEED),
@@ -1451,6 +1467,275 @@ def check_debug_train_step(dev, card: str) -> dict:
     for k, v in expected.items():
         fail_if(out["launches"][k] != v, f"debug train step: {k} {out['launches'][k]} != {v}")
     fail_if(bool(bad), f"debug float32 train step GPU vs CPU: {bad[:8]}")
+    return res
+
+
+# the Tiny training phase: the Tiny training CLI's defaults (resolution
+# "big", 768x1024, batch 8), 1 warm-up, 1 counted and 3 timed steps
+TINY_TRAIN_BATCH = 8
+TINY_TRAIN_STEPS = 3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class KeepMetrics:
+    """A `train_k_steps` logger that keeps each step's metrics as tensors:
+    no host read while the steps run."""
+
+    def __init__(self):
+        self.rows: list[dict] = []
+
+    def log(self, step: int, metrics: dict) -> None:
+        self.rows.append(metrics)
+
+
+def record_sync(message, syncs: dict[str, int]) -> None:
+    """Count a synchronizing call (sync debug mode "warn") by the innermost
+    line of this repository on the stack that made it; the loader's
+    thread's calls count too, marked as such."""
+    import threading
+    import traceback
+
+    if "called a synchronizing" not in str(message):
+        return
+    frames = [f for f in traceback.extract_stack()[:-2] if f.filename.startswith(str(ROOT))]
+    where = (f"{Path(frames[-1].filename).relative_to(ROOT)}:{frames[-1].lineno}" if frames
+             else "outside the repository")
+    if threading.current_thread() is not threading.main_thread():
+        where += " (loader thread)"
+    syncs[where] = syncs.get(where, 0) + 1
+
+
+def synthetic_batches(gen, dev, B: int, hw: tuple[int, int]):
+    while True:
+        yield synthetic_depth_batch(gen, dev, B, hw)
+
+
+def run_tiny_training(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
+    """Path C: Tiny RoMa training as its CLI composes it, at full width
+    (`TinyRomaConfig()`: XFeat 64/24, matchers 256/64, bf16) and the CLI's
+    defaults (768x1024, batch 8): `initialize_distributed` + `make_mesh` at
+    world size 1 over NCCL, `make_tiny_train_state(trainable="all")`,
+    `make_train_step(tiny_robust_loss, the CLI's LOSS_CFG, mesh=mesh)`, a
+    `PairLoader` over synthetic depth batches, `train_k_steps`. One warm-up
+    step; one counted step (launch counters reset just before it, every
+    kernel must read 0: K7 is off in train mode, as in JAX) under
+    `torch.cuda.set_sync_debug_mode("warn")`, whose synchronizing calls are
+    reported; then 3 timed steps. Finite metrics with corr_volume_loss_8
+    among them, every running statistic moved; samples/s and peak memory
+    (with `profile_dir`, one more step under torch.profiler). Then one step
+    through `mesh=` against the same step without it, from the same state
+    and batch (`compare_mesh_step`), and a checkpoint save, reload and
+    `replicate` as the CLI resumes (bit-equal model, optimizer and
+    counters, each tensor on its device), then one step from it."""
+    import os
+    import tempfile
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from roma_torch.config import TrainConfig
+    from roma_torch.datasets.loader import PairLoader
+    from roma_torch.experiments.train_tiny_roma_v1_outdoor import LOSS_CFG, RESOLUTIONS
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.losses.robust_loss import tiny_robust_loss
+    from roma_torch.parallel.mesh import (global_batch_from_host_local, initialize_distributed,
+                                          make_mesh, replicate)
+    from roma_torch.train.checkpoint import CheckPoint
+    from roma_torch.train.train import make_tiny_train_state, make_train_step, train_k_steps
+
+    B, hw = TINY_TRAIN_BATCH, RESOLUTIONS["big"]
+    cfg = TrainConfig(batch_size=B)
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    res: dict = {"batch": B, "hw": list(hw)}
+    loader = None
+    try:
+        fail_if(initialize_distributed(dev) != (0, 1), "tiny train: not rank 0 of 1")
+        backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+        fail_if(dist.get_backend() != backend, f"tiny train: backend {dist.get_backend()}")
+        mesh = make_mesh(dev)
+        state = replicate(make_tiny_train_state(cfg, trainable="all", seed=SEED, device=dev), mesh)
+        step = make_train_step(tiny_robust_loss, LOSS_CFG, mesh=mesh)
+        stats0 = {k: t.clone() for k, t in state.model.state_dict().items()
+                  if k.endswith(("running_mean", "running_var"))}
+        loader = PairLoader(synthetic_batches(gen, dev, B, hw), prefetch=2, num_threads=2)
+        put = lambda b: global_batch_from_host_local(b, mesh)  # noqa: E731
+        log = KeepMetrics()
+        t0 = time.perf_counter()
+        state = train_k_steps(state, loader, step, 1, log, put)
+        torch.cuda.synchronize()
+        res["first_step_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        syncs: dict[str, int] = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = lambda message, *a, **k: record_sync(message, syncs)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                state = train_k_steps(state, loader, step, 1, log, put)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            res["counted_step_s"] = time.perf_counter() - t0
+        res["launches"] = launches = dict(LAUNCHES)
+        res["syncs_in_a_step"] = syncs
+        times = []
+        for _ in range(TINY_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state = train_k_steps(state, loader, step, 1, log, put)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res.update(step_s=times, samples_per_s=B * len(times) / sum(times),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, samples=state.step)
+        metrics = [{k: float(v) for k, v in m.items()} for m in log.rows]
+        res["metrics"] = metrics[-1]
+        print(f"[{card}] tiny train step at {hw[0]}x{hw[1]}, batch {B}, bf16, mesh of 1 over "
+              f"{backend}: first {res['first_step_s']:.3f} s, counted {res['counted_step_s']:.4f} s, "
+              f"then {', '.join(f'{t:.4f}' for t in times)} s; {res['samples_per_s']:.3f} "
+              f"samples/s; peak {res['peak_mem_gb']:.2f} GB; launches a step {launches}",
+              flush=True)
+        print(f"[{card}] tiny train synchronizing calls in one step (sync debug mode warn): "
+              f"{json.dumps(syncs)}", flush=True)
+        print(f"[{card}] tiny train metrics: {json.dumps(metrics[-1])}", flush=True)
+        for name, n in launches.items():
+            fail_if(n != 0, f"tiny train step: {name} launched {n} times")
+        for m in metrics:
+            bad = [k for k, v in m.items() if not math.isfinite(v)]
+            fail_if(bool(bad), f"tiny train step: non-finite metrics {bad}")
+            fail_if("corr_volume_loss_8" not in m, "tiny train step: no corr_volume_loss_8")
+        sd = state.model.state_dict()
+        still = [k for k in stats0 if torch.equal(stats0[k], sd[k])]
+        fail_if(bool(still), f"tiny train step: running statistics not moved: {still[:5]}")
+        res["bn_statistics_moved"] = len(stats0)
+        if profile_dir is not None:
+            res["profile"] = profile_train_step(step, state, put(next(loader)), profile_dir,
+                                                "tiny.", "profile_tiny_train.txt")
+            print(f"[{card}] tiny train profile: {json.dumps(res['profile'])}", flush=True)
+        loader.close()
+        loader = None
+        torch.cuda.empty_cache()
+
+        res["mesh_vs_plain"] = compare_mesh_step(dev, cfg, hw, mesh, LOSS_CFG, card)
+
+        with tempfile.TemporaryDirectory() as d:
+            # as the CLI resumes: load, then replicate over the mesh (AdamW's
+            # step counts stay on the host, and go through a device copy)
+            ck = CheckPoint(d, "tiny_roma_v1_outdoor")
+            ck.save(state)
+            fresh = replicate(ck.load(make_tiny_train_state(cfg, seed=SEED + 1, device=dev)), mesh)
+            a, b = state.model.state_dict(), fresh.model.state_dict()
+            opt_a, opt_b = state.optimizer.state_dict()["state"], fresh.optimizer.state_dict()["state"]
+            same = (all(torch.equal(a[k], b[k]) for k in a) and fresh.step == state.step
+                    and fresh.updates == state.updates and opt_a.keys() == opt_b.keys()
+                    and all(opt_a[i][k].device == opt_b[i][k].device
+                            and torch.equal(opt_a[i][k], opt_b[i][k])
+                            for i in opt_a for k in opt_a[i]))
+            fail_if(not same, "tiny train: checkpoint reload and replicate differ")
+            del state
+            fresh, met = step(fresh, put(synthetic_depth_batch(gen, dev, B, hw)))
+            bad = [k for k, v in met.items() if not math.isfinite(float(v))]
+            fail_if(bool(bad), f"tiny train: the step after the resume: non-finite {bad}")
+            res["checkpoint_round_trip"] = "bit-equal through replicate, then a step"
+    finally:
+        if loader is not None:
+            loader.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_mesh_step(dev, cfg, hw, mesh, loss_cfg, card: str) -> dict:
+    """One Tiny training step through `mesh=` (world size 1, where every
+    all-reduce is the identity) against the same step without it, each from
+    a fresh state of the same seed on the same batch, in turns, in bf16
+    (the CLI's dtype) and in float32:
+
+    - the loss, its terms and the running statistics of the mesh step
+      within 1e-5 of the plain step's (relative; a mean of its channels'
+      largest standard deviation), in both dtypes;
+    - the gradients before the clip in float32, under `grad_parity`'s rule
+      with no tensor named (GRAD_TOL of max|g|; the biases before a
+      training BatchNorm exact zeros), and `grad_norm` within GRAD_TOL.
+
+    The gradients are held in float32 only: the backward is not
+    deterministic (atomic adds in grid_sample's and the resizes' backward),
+    and in bf16 the roundings after those sums move a gradient by up to a
+    fifth of its max|g| between two runs of the plain step on an H100, a
+    quantized noise that no fixed bound separates from a fault. In float32
+    the forward is the same on both sides, so no ReLU or loss gate flips,
+    and the reordered sums move a gradient by float32 roundings only.
+    Reports whether each agrees bit for bit, and the worst readings."""
+    import dataclasses
+
+    import torch
+
+    from roma_torch.config import TinyRomaConfig
+    from roma_torch.losses.robust_loss import tiny_robust_loss
+    from roma_torch.models.zoo import build_model
+    from roma_torch.train.grad_parity import GRAD_TOL, grad_mismatches
+    from roma_torch.train.train import make_tiny_train_state, make_train_step
+
+    batch = synthetic_depth_batch(torch.Generator(device=dev).manual_seed(SEED + 1), dev,
+                                  cfg.batch_size, hw)
+
+    def one(m, dtype):
+        model = build_model(dataclasses.replace(TinyRomaConfig(), dtype=dtype), SEED)
+        st = make_tiny_train_state(cfg, model=model, device=dev)
+        st, met = make_train_step(tiny_robust_loss, loss_cfg, mesh=m)(st, batch)
+        scale = max(float(met["grad_norm"]), cfg.grad_clip) / cfg.grad_clip
+        return ({k: float(v) for k, v in met.items()},
+                {n: p.grad.float() * scale for n, p in st.model.named_parameters()},
+                {k: v.clone() for k, v in st.model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}, st.model)
+
+    res: dict = {}
+    for dtype in ("bfloat16", "float32"):
+        (pm, pg, ps, model), (mm, mg, ms, _) = one(None, dtype), one(mesh, dtype)
+        forward = max(abs(mm[k] - v) / max(abs(v), 1e-30) for k, v in pm.items()
+                      if k != "grad_norm")
+
+        def scale(k):
+            var = ps[k.rsplit(".", 1)[0] + ".running_var"]
+            return var.sqrt().max() if k.endswith("mean") else var.abs().max()
+
+        stat_rel = max(((ms[k] - v).abs().max() / scale(k)).item() for k, v in ps.items())
+        r = res[dtype] = dict(
+            metric_rel=forward, stat_rel=stat_rel,
+            bit_equal_metrics=all(mm[k] == v for k, v in pm.items() if k != "grad_norm"),
+            bit_equal_stats=all(torch.equal(ms[k], v) for k, v in ps.items()),
+            bit_equal_grads=all(torch.equal(mg[k], v) for k, v in pg.items()),
+            grad_norms=[pm["grad_norm"], mm["grad_norm"]])
+        bad = []
+        if dtype == "float32":
+            bad, worst = grad_mismatches(model, mg, pg, named={})
+            rel = {n: ((mg[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                   for n, g in pg.items()}
+            r.update(grad_norm_rel=abs(mm["grad_norm"] - pm["grad_norm"]) / pm["grad_norm"],
+                     grad_readings=worst,
+                     worst_grads_over_max=dict(sorted(rel.items(), key=lambda kv: -kv[1])[:5]))
+        print(f"[{card}] tiny train step through mesh= vs without, {dtype}: {json.dumps(r)}",
+              flush=True)
+        fail_if(forward > 1e-5, f"tiny train mesh vs plain, {dtype}: metrics rel {forward}")
+        fail_if(stat_rel > 1e-5, f"tiny train mesh vs plain, {dtype}: statistics {stat_rel}")
+        fail_if(bool(bad), f"tiny train mesh vs plain, {dtype}: gradients {bad[:8]}")
+        fail_if(r.get("grad_norm_rel", 0.0) > GRAD_TOL,
+                f"tiny train mesh vs plain, {dtype}: grad_norm {r['grad_norms']}")
+        del model, pg, mg
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2119,6 +2404,8 @@ def main() -> int:
     report["train"] = run_training(dev, gen, card, out_dir if args.profile else None)
     torch.cuda.empty_cache()
     report["debug_train_step"] = check_debug_train_step(dev, card)
+    torch.cuda.empty_cache()
+    report["tiny_train"] = run_tiny_training(dev, gen, card, out_dir if args.profile else None)
 
     # each kernel's launches come from the run of the path it serves
     train = report["train"]["launches"]

@@ -116,8 +116,10 @@ class RomaConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh of the JAX package's data parallelism (kept for the
-    defaults of `TrainConfig`; the port's data parallelism is later work)."""
+    """Device mesh of the JAX package's data parallelism, kept for the
+    defaults of `TrainConfig`. The port's mesh is one ("data",) axis over
+    every torch.distributed rank (`parallel.mesh.make_mesh`), one device a
+    rank; no model axis."""
     data: int = -1                # -1: use all devices
     model: int = 1
 

@@ -15,6 +15,12 @@ instead of boolean indexing, GT warps recomputed per scale from depth.
   InfoNCE on the correlation volume at mutual-nearest GT pairs.
 
 Corresps and batches are channels-last, as in the JAX package.
+
+Every mean is a mean over the global batch, as in the JAX package's
+sharded step: under a data-parallel group (`parallel.mesh.data_parallel`)
+each rank returns its share of it (`mean_share`: its numerator over the
+all-reduced count, times the world size), so that the ranks' average
+gradient is the global mean's; alone, the plain mean.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from roma_torch.ops.corr import coord_grid
 from roma_torch.ops.resize import interpolate_nearest
+from roma_torch.parallel.mesh import mean_share
 from roma_torch.utils.geometry import get_gt_warp
 
 
@@ -45,7 +52,12 @@ class RobustLossConfig:
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     m = mask.float()
-    return (x * m).sum() / (m.sum() + eps)
+    return mean_share((x * m).sum(), m.sum(), eps)
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    # the count made on the device: no host-to-device copy, which syncs
+    return mean_share(x.sum(), torch.full((), float(x.numel()), device=x.device))
 
 
 def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -60,7 +72,7 @@ def regression_terms(cfg: RobustLossConfig, gt_warp, prob, flow, certainty, scal
                      gt_cert=None):
     """(certainty BCE mean, Charbonnier regression mean over prob > 0.99)."""
     epe = torch.linalg.norm(flow - gt_warp, dim=-1)
-    ce = _bce_with_logits(certainty[..., 0], gt_cert if gt_cert is not None else prob).mean()
+    ce = _mean(_bce_with_logits(certainty[..., 0], gt_cert if gt_cert is not None else prob))
     a = _alpha_for(cfg, scale)
     cs = cfg.c * scale
     reg = cs**a * ((epe / cs) ** 2 + 1.0) ** (a / 2)
@@ -123,7 +135,7 @@ def tiny_robust_loss(
 
         if "corr_volume" in sc:
             gt_bwd, _ = get_gt_warp(
-                batch["im_B_depth"], batch["im_A_depth"], torch.linalg.inv(batch["T_1to2"]),
+                batch["im_B_depth"], batch["im_A_depth"], torch.linalg.inv_ex(batch["T_1to2"])[0],
                 batch["K2"], batch["K1"], H=h, W=w,
                 relative_depth_error_threshold=cfg.relative_depth_error_threshold)
             nce = corr_volume_nll(cfg, sc["corr_volume"], gt_warp, gt_bwd, (h, w))
@@ -167,7 +179,7 @@ def robust_loss(
             logp = torch.log_softmax(gm_cls.float(), dim=-1)
             ce_cls = -torch.gather(logp, -1, gt_label[..., None])[..., 0]
             cls_loss = _masked_mean(ce_cls, prob > 0.99)
-            cert_loss = _bce_with_logits(gm_cert[..., 0], prob).mean()
+            cert_loss = _mean(_bce_with_logits(gm_cert[..., 0], prob))
             tot = tot + cfg.ce_weight * cert_loss + cls_loss
             metrics[f"gm_cls_loss_{scale}"] = cls_loss
             metrics[f"gm_certainty_loss_{scale}"] = cert_loss

@@ -13,7 +13,11 @@ biased variance, the refiner's `DWBlock` (momentum 0.99) the unbiased one,
 and both move a statistic as ``m * old + (1 - m) * batch``. Under
 activation checkpointing the forward runs twice; `checkpoint` freezes the
 running statistics during the recompute, so that one step moves each
-statistic once, as flax's remat does.
+statistic once, as flax's remat does. Under a data-parallel group
+(`roma_torch.parallel.mesh.data_parallel`) the batch statistics are the
+global batch's, as in the JAX package's sharded step; a checkpoint's
+recompute enters the group its forward saw, so both passes see the same
+statistics.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+from roma_torch.parallel.mesh import active_group, all_reduce_sum, data_parallel
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -67,15 +73,23 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, momentum: float,
     reach), then move the running statistics as ``momentum * old +
     (1 - momentum) * batch``, the variance Bessel-corrected (n / (n - 1))
     when `unbiased_running_var`; not inside `frozen_stats`. `momentum` is
-    the JAX package's (flax) convention: torch's is 1 - momentum."""
+    the JAX package's (flax) convention: torch's is 1 - momentum. The sums
+    and the count are all-reduced (differentiably) under an active
+    data-parallel group, so every rank uses the global batch's statistics."""
     y = x.float()
     axes = (0, 2, 3)
-    mean = y.mean(axes)
-    var = ((y * y).mean(axes) - mean * mean).clamp(min=0.0)
+    C = y.shape[1]
+    sums = torch.cat([y.sum(axes), (y * y).sum(axes),
+                      y.new_full((1,), float(y.numel() // C))])
+    group = active_group()
+    if group is not None:
+        sums = all_reduce_sum(sums, group)
+    n = sums[2 * C]
+    mean = sums[:C] / n
+    var = (sums[C:2 * C] / n - mean * mean).clamp(min=0.0)
     if not getattr(_STATS, "frozen", False):
         with torch.no_grad():
-            n = y.numel() // y.shape[1]
-            tracked = var * (n / max(n - 1, 1)) if unbiased_running_var else var
+            tracked = var * (n / (n - 1).clamp(min=1)) if unbiased_running_var else var
             bn.running_mean.copy_(momentum * bn.running_mean + (1 - momentum) * mean)
             bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * tracked)
     inv = torch.rsqrt(var + bn.eps)
@@ -85,13 +99,22 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, momentum: float,
     return out if bn.bias is None else out + bn.bias[:, None, None]
 
 
+@contextlib.contextmanager
+def _recompute(group):
+    with frozen_stats(), data_parallel(group):
+        yield
+
+
 def checkpoint(fn, *args):
     """`fn(*args)` with its activations recomputed in backward
     (torch.utils.checkpoint, non-reentrant), the recompute inside
-    `frozen_stats`: the running statistics move once, in the forward."""
+    `frozen_stats` (the running statistics move once, in the forward) and
+    inside the data-parallel group of the forward (the backward may run on
+    another thread)."""
+    group = active_group()
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), frozen_stats()))
+        context_fn=lambda: (contextlib.nullcontext(), _recompute(group)))
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +126,9 @@ class ConvBlock(nn.Module):
     """The reference XFeat `BasicLayer`: conv (torch padding k//2, stride, no
     bias) -> BatchNorm2d(affine=False) -> ReLU, NCHW. The conv runs in the
     compute dtype, BatchNorm and ReLU in float32, and the output returns in
-    the compute dtype, as the JAX package's `ConvBlock` does."""
+    the compute dtype, as the JAX package's `ConvBlock` does. In train mode
+    BatchNorm takes the batch statistics (flax's momentum 0.9, biased
+    variance tracked), as the JAX `ConvBlock` with `train=True`."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, dtype: torch.dtype = torch.bfloat16):
@@ -115,10 +140,13 @@ class ConvBlock(nn.Module):
             nn.BatchNorm2d(out_channels, affine=False),
             nn.ReLU(inplace=True),
         )
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv2d(self.layer[0], x, self.dtype)
-        return torch.relu(batch_norm(self.layer[1], y)).to(self.dtype)
+        bn = self.layer[1]
+        y = batch_norm_train(bn, y, 0.9, False) if self.training else batch_norm(bn, y)
+        return torch.relu(y).to(self.dtype)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -6,7 +6,8 @@
 -> (O, I), BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
 running_var``. The port's modules carry the reference RoMa key names, so the
 result loads with ``RomaModel.load_state_dict`` and a reference checkpoint
-would load the same way.
+would load the same way (`load_reference_tiny` warm-starts Tiny RoMa from
+one, as the JAX package's Tiny training CLI does through ``port_tiny_roma``).
 """
 
 from __future__ import annotations
@@ -154,3 +155,34 @@ def tiny_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Te
             block(f"{name}.{i}", mp[f"block_{i}"], ms[f"block_{i}"])
         w.conv(f"{name}.{n}", mp["head"])
     return w.sd
+
+
+XFEAT_TRUNK = ("block1.", "block2.", "block3.", "block4.", "block5.", "skip1.", "block_fusion.")
+
+
+def load_reference_tiny(model: torch.nn.Module, state: Mapping[str, Any]) -> list[str]:
+    """Load a reference Tiny RoMa checkpoint's state_dict into `model` (a
+    TinyRoma), in the layouts the JAX package's ``port_tiny_roma`` reads:
+    the trunk's keys under ``xfeat.0.``, ``net.`` or bare (the raw XFeat
+    checkpoint), absent in the frozen layout; the matchers' ConvBlocks
+    (``{coarse,fine}_matcher.{i}.layer.*``) and heads as they are. Other
+    keys (XFeat's detection heads) are not read. Returns the model's keys
+    the checkpoint did not set; raises if a key it sets has another shape."""
+    blocks = len(model.coarse_matcher) - 1
+    own = model.state_dict()
+    picked: dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        for prefix in ("xfeat.0.", "net.", ""):
+            rest = key[len(prefix):]
+            if key.startswith(prefix) and rest.startswith(XFEAT_TRUNK):
+                picked[f"xfeat.0.{rest}"] = value
+                break
+        else:
+            root, _, rest = key.partition(".")
+            idx = rest.split(".")[0]
+            if root in ("coarse_matcher", "fine_matcher") and idx.isdigit() and (
+                    int(idx) == blocks or rest.split(".")[1:2] == ["layer"]):
+                picked[key] = value
+    picked = {k: torch.as_tensor(np.asarray(v)) for k, v in picked.items() if k in own}
+    missing, _ = model.load_state_dict(picked, strict=False)
+    return missing

@@ -5,14 +5,22 @@
   band/row-restricted, or streamed by the correlation-softmax kernel with
   ``fused_kernel=True``), then a 4-block conv matcher predicting
   (dx, dy, logit) residuals scaled by (2/W, 2/H, 1), optionally iterated;
-- fine (1/4): the coarse result upsampled, then a 4-block conv matcher with
-  the same residual scheme.
+- fine (1/4): the coarse result upsampled (its gradient stopped: the fine
+  stage refines and never backpropagates into the coarse one), then a
+  4-block conv matcher with the same residual scheme.
+
+Train mode (``model.train()``, the JAX package's ``train=True``): the
+ConvBlocks normalise with batch statistics, the coarse warp is always the
+exact expectation over the correlation volume (never the kernel or the
+strided shortcut, whatever a gradient needs), and scale 8 also returns
+that volume as ``corr_volume`` (None for the band and row search modes)
+for the dual-softmax loss.
 
 Module names follow the reference Tiny RoMa state_dict in its trainable
 layout (``xfeat.0.*``, ``coarse_matcher.{0..3}.layer.{0,1}``,
 ``coarse_matcher.4``, same for ``fine_matcher``). Images enter as
 (B, H, W, 3) in [0, 1] and flows/certainties leave as (B, h, w, 2|1), as in
-the JAX package; features are NCHW in between. Inference only.
+the JAX package; features are NCHW in between.
 """
 
 from __future__ import annotations
@@ -82,32 +90,36 @@ class TinyRoma(nn.Module):
                                            cfg.num_matcher_blocks, dtype=dt)
         self.fine_matcher = MatchRefiner(2 * cfg.fine_dim + 2, cfg.fine_match_dim,
                                          cfg.num_matcher_blocks, dtype=dt)
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
-    def coarse_warp(self, f0c: torch.Tensor, f1c: torch.Tensor) -> torch.Tensor:
-        """Coarse feature maps (B, C, h, w) -> softmax-expectation warp
-        (B, h, w, 2) float32."""
+    def coarse_warp(self, f0c: torch.Tensor, f1c: torch.Tensor):
+        """Coarse feature maps (B, C, h, w) -> (the softmax-expectation warp
+        (B, h, w, 2) float32, the correlation volume (B, h*w, h*w) or None
+        where none was built). Train mode takes the volume and the exact
+        expectation, as the JAX package does; in eval mode a gradient that
+        autograd needs keeps the kernel (which has no backward) off."""
         cfg = self.cfg
         B, _, h8, w8 = f0c.shape
         a = f0c.permute(0, 2, 3, 1)
         b = f1c.permute(0, 2, 3, 1)
         if cfg.search_mode == "row":
-            return row_pos_embed(a, b)
+            return row_pos_embed(a, b), None
         if cfg.search_mode == "band":
-            return banded_pos_embed(a, b, cfg.band_radius)
-        grad = runtime.grad_needed(f0c, f1c)
-        if cfg.fused_kernel and not grad:
+            return banded_pos_embed(a, b, cfg.band_radius), None
+        exact = self.training or runtime.grad_needed(f0c, f1c)
+        if cfg.fused_kernel and not exact:
             # the features as they are (bf16 from the trunk): the kernel's
             # bf16 entry scores them on the tensor cores
             grid1 = coord_grid(h8, w8, device=f0c.device).reshape(h8 * w8, 2)
             warp = fused_pos_embed(a.reshape(B, h8 * w8, -1).contiguous(),
                                    b.reshape(B, h8 * w8, -1).contiguous(), grid1)
-            return warp.reshape(B, h8, w8, 2)
+            return warp.reshape(B, h8, w8, 2), None
         cv = corr_volume(a, b)
-        if cfg.exact_softmax or grad:
+        if cfg.exact_softmax or exact:
             warp = pos_embed_expectation(cv, (h8, w8))
         else:
             warp = pos_embed_fast(cv, (h8, w8), faithful=cfg.faithful_fast_path)
-        return warp.reshape(B, h8, w8, 2)
+        return warp.reshape(B, h8, w8, 2), cv
 
     def forward(self, im_a: torch.Tensor, im_b: torch.Tensor) -> dict[int, dict[str, torch.Tensor]]:
         """(B, H, W, 3) images -> {8: {"flow", "certainty"}, 4: {...}},
@@ -120,9 +132,9 @@ class TinyRoma(nn.Module):
         f0f, f1f = fine[:B], fine[B:]
 
         with record_function("tiny.coarse_warp"):
-            coarse_warp = self.coarse_warp(f0c, f1c)
+            coarse_warp, cv = self.coarse_warp(f0c, f1c)
         # residual step: one target-image pixel in normalized units
-        to_norm = torch.tensor([2 / W, 2 / H, 1.0], dtype=torch.float32, device=im_a.device)
+        to_norm = torch.tensor([2 / W, 2 / H, 1.0]).to(im_a.device, non_blocking=True)
         matches = torch.cat([coarse_warp, torch.zeros_like(coarse_warp[..., :1])], dim=-1)
         with record_function("tiny.coarse_matcher"):
             for _ in range(self.cfg.coarse_iters):
@@ -133,10 +145,12 @@ class TinyRoma(nn.Module):
                 delta = self.coarse_matcher(coarse_in).permute(0, 2, 3, 1)
                 matches = matches + delta * to_norm
         corresps = {8: {"flow": matches[..., :2], "certainty": matches[..., 2:]}}
+        if self.training:
+            corresps[8]["corr_volume"] = cv
 
         with record_function("tiny.fine_matcher"):
             h4, w4 = f0f.shape[-2:]
-            up = interpolate_bilinear(matches, (h4, w4))
+            up = interpolate_bilinear(matches, (h4, w4)).detach()
             f1f_warped = grid_sample_nchw(f1f, up[..., :2])
             fine_in = torch.cat(
                 [f0f, f1f_warped.to(dt), up[..., :2].permute(0, 3, 1, 2).to(dt)], dim=1)

@@ -14,6 +14,10 @@ block_fusion, without the detection and matching heads. Channel plan:
   fusion: bilinear-up block4/5 to 1/8, sum with block3,
           64->64->64(1x1 plain conv)                  -> 1/8   (coarse feats)
 
+In train mode every ConvBlock normalises with batch statistics; the two
+images of a pair go through as one batch, so the statistics cover both,
+as in the JAX package.
+
 Module names are the reference XFeat's (``block1.{i}.layer.{0,1}``,
 ``skip1.1``, ``block_fusion.{0,1,2}``), so its state_dict keys line up.
 """
@@ -40,6 +44,7 @@ class XFeatBackbone(nn.Module):
         self.block5 = nn.Sequential(cb(64, 128, s=2), cb(128, 128), cb(128, 128),
                                     cb(128, 64, k=1))
         self.block_fusion = nn.Sequential(cb(64, 64), cb(64, 64), nn.Conv2d(64, 64, 1))
+        self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, C, H, W) image in [0, 1] -> (fine (B, 24, H/4, W/4),

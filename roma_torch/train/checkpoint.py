@@ -54,8 +54,11 @@ class CheckPoint:
         step = step if step is not None else self.latest_step()
         if step is None:
             return state
-        device = next(state.model.parameters()).device
-        blob = torch.load(self._path(step), map_location=device, weights_only=True)
+        # loaded on the host: the model and the optimizer copy each tensor
+        # to its parameter's device, and AdamW's step counts stay on the
+        # host, as a fresh optimizer keeps them (on the GPU each step would
+        # read them back)
+        blob = torch.load(self._path(step), map_location="cpu", weights_only=True)
         state.model.load_state_dict(blob["model"])
         state.optimizer.load_state_dict(blob["optimizer"])
         state.step, state.updates = int(blob["step"]), int(blob["updates"])

@@ -76,7 +76,8 @@ def warp_kpts(kpts0, depth0, depth1, T_0to1, K0, K1,
 
     kpts0_px = torch.stack((w * (kpts0[..., 0] + 1) / 2, h * (kpts0[..., 1] + 1) / 2), -1)
     kpts0_h = torch.cat([kpts0_px, torch.ones_like(kpts0_px[..., :1])], -1) * kpts0_depth[..., None]
-    kpts0_cam = torch.linalg.inv(K0.to(f32)) @ kpts0_h.transpose(-1, -2)
+    # inv_ex: no error check, which would read the device (a host sync)
+    kpts0_cam = torch.linalg.inv_ex(K0.to(f32))[0] @ kpts0_h.transpose(-1, -2)
     w_kpts0_cam = T_0to1[:, :3, :3].to(f32) @ kpts0_cam + T_0to1[:, :3, 3:4].to(f32)
     w_depth_computed = w_kpts0_cam[:, 2, :]
 

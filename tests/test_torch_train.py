@@ -53,6 +53,7 @@ from roma_tpu.losses.robust_loss import robust_loss as j_robust_loss
 from roma_tpu.models.zoo import debug_roma_config as j_debug_config
 from roma_tpu.train import train as jtrain
 from roma_torch.config import TrainConfig
+from roma_torch.losses.robust_loss import robust_loss
 from roma_torch.models.layers import batch_norm_train, checkpoint
 from roma_torch.models.matcher import RomaModel
 from roma_torch.models.port import state_dict_from_jax
@@ -118,7 +119,7 @@ def run_steps():
 
     batch = make_batch(np.random.default_rng(5))
     jnew, jmetrics = jtrain.make_train_step(loss_fn=j_robust_loss)(jstate, batch)
-    tnew, tmetrics = ttrain.make_train_step()(tstate, batch)
+    tnew, tmetrics = ttrain.make_train_step(robust_loss)(tstate, batch)
     grads = {"params": _np(jnew.opt_state[0]), "batch_stats": variables["batch_stats"]}
     return dict(
         before=before,
@@ -460,7 +461,7 @@ def _port_grads(state_dict, batch, threads=None):
         model = RomaModel(dataclasses.replace(debug_roma_config(), dtype="float32"))
         model.load_state_dict(state_dict)
         state = ttrain.make_roma_train_state(TrainConfig(batch_size=1), model=model, device="cpu")
-        _, metrics = ttrain.make_train_step()(state, batch)
+        _, metrics = ttrain.make_train_step(robust_loss)(state, batch)
     finally:
         torch.set_num_threads(old)
     scale = max(float(metrics["grad_norm"]), state.cfg.grad_clip) / state.cfg.grad_clip
