@@ -82,7 +82,21 @@
    every running statistic moved, samples/s and peak memory; one step
    through mesh= against the same step without it; a checkpoint round
    trip;
-13. prints the kernels JSON line, then {"ok": true, "device": ...} last.
+13. the evaluation path (run_eval, run right after 6 on its matcher) on
+   a two-plane world rendered from a seed in the MegaDepth layout (8
+   pairs, 480x640 and 600x800): the native estimator built from
+   roma_torch/native beside the kernels and bound (no fallback); exact
+   warps through the batched harness engine on the card, batch 4, with and
+   without device_resize (AUC@5 > 0.9); full-width roma_outdoor() through
+   MegaDepthPoseEstimationBenchmark (batch 2, device_resize, native, 5000
+   samples, 5 runs): the first batch's launches as expected, finite
+   errors, no synchronizing call from the harness's main loop under sync
+   debug mode "warn", pairs/s, the match's device time, the estimator
+   pool's time, with --profile the device idle share of one eval; then
+   train -> eval: Tiny RoMa trained 600 steps on the 96x128 world of
+   tests/test_train_to_eval.py reaches AUC@5 > 0.5 and > untrained + 0.3
+   through the port's harness;
+14. prints the kernels JSON line, then {"ok": true, "device": ...} last.
 
 Any failure exits non-zero before the last line. Detailed per-shape results
 go to DIR/chip_smoke.json (default results/chip_smoke/).
@@ -96,6 +110,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1497,9 +1512,9 @@ class KeepMetrics:
 
 def record_sync(message, syncs: dict[str, int]) -> None:
     """Count a synchronizing call (sync debug mode "warn") by the innermost
-    line of this repository on the stack that made it; the loader's
-    thread's calls count too, marked as such."""
-    import threading
+    line of this repository on the stack that made it; other threads'
+    calls (a loader's, an uploader's, a worker's) count too, marked with
+    the thread's name."""
     import traceback
 
     if "called a synchronizing" not in str(message):
@@ -1508,7 +1523,7 @@ def record_sync(message, syncs: dict[str, int]) -> None:
     where = (f"{Path(frames[-1].filename).relative_to(ROOT)}:{frames[-1].lineno}" if frames
              else "outside the repository")
     if threading.current_thread() is not threading.main_thread():
-        where += " (loader thread)"
+        where += f" ({threading.current_thread().name})"
     syncs[where] = syncs.get(where, 0) + 1
 
 
@@ -2172,6 +2187,503 @@ def run_smooth_warp(dev, gen, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the evaluation path: a rendered two-plane world, the harness engine on the
+# card, full-width RoMa through Mega-1500, train -> eval
+# ---------------------------------------------------------------------------
+
+PLANE_Z = (4.0, 6.0)       # near plane (world x < 0), far plane (x >= 0)
+WORLD_HW = (96, 128)       # tests/test_train_to_eval.py's image size and focal
+WORLD_FX = 130.0
+EVAL_SIZES = ((480, 640), (600, 800))  # two source sizes, alternating on the ring
+EVAL_CAMS = range(-4, 5)   # ring cameras that see both planes (10-90% near); 8 pairs
+EVAL_BATCH = 2
+EVAL_SAMPLES = 5000
+EVAL_RUNS = 5
+T2E_STEPS = 600            # tests/test_train_to_eval.py's settings
+T2E_CAMS = 5
+
+
+def smooth_texture(rng, n: int = 384):
+    import numpy as np
+
+    t = rng.uniform(0, 1, (n, n, 3)).astype(np.float32)
+    for _ in range(2):
+        for ax in (0, 1):
+            t = 0.5 * t + 0.25 * (np.roll(t, 1, ax) + np.roll(t, -1, ax))
+    return (t - t.min()) / (t.max() - t.min())
+
+
+def ring_pose(i: int):
+    """World-to-camera pose of camera i on the ring: 2 degrees of yaw and
+    (0.25, 0.02, 0) of translation a step."""
+    import numpy as np
+
+    a = np.deg2rad(2.0 * i)
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    T[:3, 3] = [0.25 * i, 0.02 * i, 0.0]
+    return T
+
+
+def world_K(hw: tuple[int, int]):
+    """The intrinsics of an image of size hw: the world's focal scaled with
+    the width, the principal point at the center."""
+    import numpy as np
+
+    h, w = hw
+    f = WORLD_FX * w / WORLD_HW[1]
+    return np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+
+
+def _sample_texture(tex, u, v):
+    import numpy as np
+
+    n = tex.shape[0]
+    u = np.clip(u, 0, n - 1.001)
+    v = np.clip(v, 0, n - 1.001)
+    u0, v0 = np.floor(u).astype(int), np.floor(v).astype(int)
+    fu, fv = (u - u0)[..., None], (v - v0)[..., None]
+    return (tex[v0, u0] * (1 - fu) * (1 - fv) + tex[v0, u0 + 1] * fu * (1 - fv)
+            + tex[v0 + 1, u0] * (1 - fu) * fv + tex[v0 + 1, u0 + 1] * fu * fv)
+
+
+def surface_points(T, K, u, v):
+    """The world points that the pixels (u, v) of camera (T, K) see: the
+    near plane where it lies at world x < 0, else the far plane."""
+    import numpy as np
+
+    R, t = T[:3, :3], T[:3, 3]
+    c = -R.T @ t
+    rays = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1], np.ones_like(u)], -1)
+    d = rays @ R
+    near = c + d * ((PLANE_Z[0] - c[2]) / d[..., 2])[..., None]
+    far = c + d * ((PLANE_Z[1] - c[2]) / d[..., 2])[..., None]
+    use_near = near[..., 0] < 0
+    return np.where(use_near[..., None], near, far), use_near
+
+
+def render_two_plane(T, K, hw, tex_near, tex_far):
+    """Image (H, W, 3) in [0, 1] and depth (H, W) of the two textured
+    planes, by ray-plane intersection and bilinear texture lookup (the
+    renderer of tests/test_train_to_eval.py at any size)."""
+    import numpy as np
+
+    h, w = hw
+    u, v = np.meshgrid(np.arange(w) + 0.5, np.arange(h) + 0.5, indexing="xy")
+    X, use_near = surface_points(T, K, u, v)
+    img = np.zeros((h, w, 3), np.float32)
+    S = 4.0  # world (x, y) in [-S, S] -> texture [0, n)
+    for sel, tex in ((use_near, tex_near), (~use_near, tex_far)):
+        n = tex.shape[0]
+        uu = (X[..., 0] + S) / (2 * S) * (n - 1)
+        vv = (X[..., 1] + S) / (2 * S) * (n - 1)
+        img[sel] = _sample_texture(tex, uu[sel], vv[sel])
+    depth = (X @ T[:3, :3].T + T[:3, 3])[..., 2].astype(np.float32)
+    return img, depth
+
+
+def write_two_plane_scene(root: Path, cams, sizes, seed: int = 3) -> dict:
+    """Render the ring's cameras `cams` (camera cams[j] at sizes[j]) into
+    root/images and write root/scene.npz in the MegaDepth layout, pairs
+    (j, j + 1). Returns the images, depths, poses and intrinsics."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    tex_near, tex_far = smooth_texture(rng), smooth_texture(rng)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    world: dict[str, list] = {"imgs": [], "depths": [], "poses": [], "Ks": [], "paths": []}
+    for j, (i, hw) in enumerate(zip(cams, sizes, strict=True)):
+        T, K = ring_pose(i), world_K(hw)
+        img, depth = render_two_plane(T, K, hw, tex_near, tex_far)
+        path = f"images/r_{j}.png"
+        Image.fromarray((img * 255).astype(np.uint8)).save(root / path)
+        for key, val in zip(("imgs", "depths", "poses", "Ks", "paths"), (img, depth, T, K, path)):
+            world[key].append(val)
+    pairs = [(i, i + 1) for i in range(len(sizes) - 1)]
+    np.savez(root / "scene.npz", pair_infos=np.array([[p, 0.5] for p in pairs], dtype=object),
+             intrinsics=np.array(world["Ks"]), poses=np.array(world["poses"]),
+             image_paths=np.array(world["paths"]))
+    return world
+
+
+def two_plane_warp(Ta, Tb, hw=WORLD_HW):
+    """The exact one-sided warp from camera a to camera b on a grid of hw
+    (normalized [x_A, y_A, x_B, y_B], (H, W, 4)) and its certainty (H, W):
+    0.9 where the point lands inside B and B sees it (its depth there
+    within 1% of the point's), else 0. Normalized coordinates do not depend
+    on the image size (the intrinsics scale with it)."""
+    import numpy as np
+
+    h, w = hw
+    K = world_K(hw)
+    u, v = np.meshgrid(np.arange(w) + 0.5, np.arange(h) + 0.5, indexing="xy")
+    X, _ = surface_points(Ta, K, u, v)
+    Xb = X @ Tb[:3, :3].T + Tb[:3, 3]
+    ub = K[0, 0] * Xb[..., 0] / Xb[..., 2] + K[0, 2]
+    vb = K[1, 1] * Xb[..., 1] / Xb[..., 2] + K[1, 2]
+    inside = (ub > 0) & (ub < w) & (vb > 0) & (vb < h)
+    Xs, _ = surface_points(Tb, K, np.clip(ub, 0, w), np.clip(vb, 0, h))
+    seen = np.abs((Xs @ Tb[:3, :3].T + Tb[:3, 3])[..., 2] - Xb[..., 2]) < 0.01 * Xb[..., 2]
+    warp = np.stack([2 * u / w - 1, 2 * v / h - 1, 2 * ub / w - 1, 2 * vb / h - 1], -1)
+    return warp.astype(np.float32), (0.9 * (inside & seen)).astype(np.float32)
+
+
+class EngineOracle:
+    """The exact two-plane warps through the harness's batched fast path:
+    the device resize (`build_resize_banks`, `match_raw`), the balanced
+    sampling (`sample_batched`) and the pixel conversion are RomaMatcher's
+    own; `match_prepped` hands out the next pairs' exact warps, in the order
+    the harness asks for them."""
+
+    def __init__(self, warps, certs, dev):
+        import torch
+
+        from roma_torch.config import RomaConfig
+        from roma_torch.models.matcher import RomaMatcher
+
+        self.host_resize_np = RomaMatcher.host_resize_np
+        self._prep_raw_impl = RomaMatcher._prep_raw_impl
+        for name in ("_to_device", "match_raw", "build_resize_banks", "sample",
+                     "sample_batched", "to_pixel_coordinates"):
+            setattr(self, name, getattr(RomaMatcher, name).__get__(self))
+        self.cfg, self.device = RomaConfig(), torch.device(dev)
+        self.warps = [torch.from_numpy(w).to(dev) for w in warps]
+        self.certs = [torch.from_numpy(c).to(dev) for c in certs]
+        self.next = 0
+
+    def match_prepped(self, a, b, a2=None, b2=None):
+        import torch
+
+        sel = slice(self.next, self.next + a.shape[0])
+        self.next += a.shape[0]
+        return torch.stack(self.warps[sel]), torch.stack(self.certs[sel])
+
+
+def harness_main_thread_syncs(syncs: dict[str, int]) -> dict[str, int]:
+    """The syncs `record_sync` counted in the harness's own code on the main
+    thread (its keys from other threads end in the thread's name; the
+    estimator jobs and the uploader run on pool threads)."""
+    return {k: v for k, v in syncs.items()
+            if k.startswith("roma_torch/benchmarks/") and not k.endswith(")")}
+
+
+def profile_eval(run, out_dir: Path) -> dict:
+    """torch.profiler over one eval: wall, device busy time and idle share,
+    and the eval.* stage ranges' host and device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_total = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+    dev_self = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    ranges = ("eval.", "roma.")
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(ranges)]
+    busy_ms = sum(dev_self(e) for e in kernels) / 1e3
+    stages = {e.key: {"host_ms": e.cpu_time_total / 1e3, "device_ms": dev_total(e) / 1e3,
+                      "calls": e.count}
+              for e in events if e.key.startswith("eval.")
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    (out_dir / "profile_eval.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=60))
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / (wall_s * 1e3), "stages": stages}
+
+
+class CountedMatchRaw:
+    """Wraps a matcher's `match_raw`: the kernel launches of the first call
+    (the counters reset just before it and read just after), and CUDA events
+    around every call for the match's device time."""
+
+    def __init__(self, match_raw):
+        self.inner, self.first, self.events = match_raw, None, []
+
+    def __call__(self, *a):
+        import torch
+
+        from roma_torch.kernels import LAUNCHES, reset_launches
+
+        if self.first is None:
+            reset_launches()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.inner(*a)
+        stop.record()
+        self.events.append((start, stop))
+        if self.first is None:
+            self.first = dict(LAUNCHES)
+        return out
+
+    def device_ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def run_eval(matcher, card: str, profile_dir: Path | None = None) -> dict:
+    """Path E, the evaluation slice, on a two-plane world rendered from a
+    seed into a temporary directory in the MegaDepth layout (cameras -4..4
+    of the ring, each seeing both planes, 480x640 and 600x800 alternating,
+    8 pairs):
+    1. the native estimator built from roma_torch/native and bound, no
+       numpy fallback;
+    2. exact warps (EngineOracle) through the batched engine on the card,
+       batch 4, with and without device_resize: AUC@5 > 0.9;
+    3. `matcher`, the full-width roma_outdoor() (seed 0, bf16), through
+       MegaDepthPoseEstimationBenchmark(batch_size=2, device_resize=True,
+       pose_backend="native", 5000 samples, 5 RANSAC runs): the first
+       batch's launches equal expected_launches, 8 x 5 finite errors; the
+       first eval under sync debug mode "warn" (the harness's main thread
+       must make no synchronizing call), the second timed (pairs/s on the
+       host clock, the match's device time by CUDA events around each
+       match_raw, the estimator pool's seconds), with --profile a third
+       under torch.profiler (device idle share, eval.* stages);
+    4. train -> eval (`train_to_eval`)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from roma_torch.benchmarks.megadepth_pose import (MegaDepthPoseEstimationBenchmark,
+                                                      summarize_pose_errors)
+    from roma_torch.benchmarks.pose_backends import bind_native
+    from roma_torch.estimation import native
+
+    dev = matcher.device
+    res: dict = {}
+    t0 = time.perf_counter()
+    fn, err = bind_native()  # started beside the kernels' build: waits for it
+    fail_if(fn is None, f"eval: the native estimator did not build or bind: {err!r}")
+    fail_if(fn.__module__ != "roma_torch.estimation.native", f"eval: bound {fn.__module__}")
+    res["native_bind_wait_s"] = time.perf_counter() - t0
+    print(f"[{card}] eval: native estimator {native.LIB_PATH.relative_to(ROOT)} built and bound "
+          f"(waited {res['native_bind_wait_s']:.2f} s)", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        world = write_two_plane_scene(root / "eval", EVAL_CAMS,
+                                      [EVAL_SIZES[j % 2] for j in range(len(EVAL_CAMS))])
+        n_pairs = len(EVAL_CAMS) - 1
+
+        def bench(**kw):
+            return MegaDepthPoseEstimationBenchmark(
+                data_root=str(root / "eval"), scene_names=["scene.npz"], pose_backend="native",
+                sample_num=EVAL_SAMPLES, num_ransac_runs=EVAL_RUNS, **kw)
+
+        # 2. the engine on exact geometry
+        exact = [two_plane_warp(world["poses"][i], world["poses"][i + 1]) for i in range(n_pairs)]
+        res["oracle"] = {}
+        for resize in (True, False):
+            oracle = EngineOracle([w for w, _ in exact], [c for _, c in exact], dev)
+            auc = bench(batch_size=4, device_resize=resize).benchmark(oracle)
+            res["oracle"][f"device_resize={resize}"] = auc
+            fail_if(oracle.next != n_pairs, f"eval oracle: {oracle.next} pairs matched")
+            fail_if(not auc["auc_5"] > 0.9, f"eval oracle (device_resize={resize}): {auc}")
+        print(f"[{card}] eval: exact warps through the batched engine on the card (batch 4, "
+              f"{n_pairs} pairs, 480x640 + 600x800): " + json.dumps(res["oracle"]), flush=True)
+
+        # 3. full-width RoMa through Mega-1500
+        raw_match = matcher.match_raw
+        est_s: list[float] = []
+        lock = threading.Lock()
+
+        def full_eval():
+            b = bench(batch_size=EVAL_BATCH, device_resize=True)
+            inner = b.estimate_pose
+
+            def timed_estimate(*a):
+                t = time.perf_counter()
+                out = inner(*a)
+                with lock:
+                    est_s.append(time.perf_counter() - t)
+                return out
+
+            b.estimate_pose = timed_estimate
+            return b.collect_errors(matcher)
+
+        matcher.match_raw = counted = CountedMatchRaw(raw_match)
+        syncs: dict[str, int] = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = lambda message, *a, **k: record_sync(message, syncs)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                errors = full_eval()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        res.update(first_eval_s=time.perf_counter() - t0, first_batch_launches=counted.first,
+                   syncs=syncs)
+        harness_syncs = harness_main_thread_syncs(syncs)
+        print(f"[{card}] eval: synchronizing calls in one batched eval ({n_pairs // EVAL_BATCH} "
+              f"batches, sync debug mode warn): harness main thread {harness_syncs or 'none'}; "
+              f"all {json.dumps(syncs)}", flush=True)
+        for name, n in expected_launches(matcher.cfg).items():
+            fail_if(counted.first[name] != n,
+                    f"eval: first batch {name}: {counted.first[name]} launches, expected {n}")
+        fail_if(len(errors) != n_pairs * EVAL_RUNS, f"eval: {len(errors)} errors")
+        fail_if(not np.isfinite(errors).all(), "eval: non-finite pose errors")
+        fail_if(bool(harness_syncs), f"eval: the harness's main loop synchronizes: {harness_syncs}")
+
+        matcher.match_raw = counted = CountedMatchRaw(raw_match)
+        est_s.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        errors = full_eval()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fail_if(len(errors) != n_pairs * EVAL_RUNS or not np.isfinite(errors).all(),
+                "eval: the timed run's errors")
+        res.update(eval_s=wall, pairs_per_s=n_pairs / wall, match_device_ms=counted.device_ms(),
+                   matcher_share=counted.device_ms() / 1e3 / wall, estimator_s=sum(est_s),
+                   estimator_calls=len(est_s), summary=summarize_pose_errors(np.asarray(errors)))
+        print(f"[{card}] eval: roma_outdoor() (560 -> 864, bf16, random weights) through "
+              f"Mega-1500 (batch {EVAL_BATCH}, device_resize, native, {EVAL_SAMPLES} samples, "
+              f"{EVAL_RUNS} runs), {n_pairs} pairs: {wall:.3f} s, {res['pairs_per_s']:.3f} "
+              f"pairs/s; match_raw device time {res['match_device_ms']:.1f} ms "
+              f"({100 * res['matcher_share']:.1f}% of the wall); estimator pool "
+              f"{res['estimator_s']:.3f} s over {len(est_s)} calls; first eval (warm-up, sync "
+              f"debug) {res['first_eval_s']:.3f} s; first batch launches "
+              f"{json.dumps(res['first_batch_launches'])}; AUC (random weights, not gated) "
+              + json.dumps(res["summary"]), flush=True)
+        if profile_dir is not None:
+            res["profile"] = prof = profile_eval(full_eval, profile_dir)
+            print(f"[{card}] eval profile: " + json.dumps(prof), flush=True)
+        matcher.match_raw = raw_match
+        del counted
+        torch.cuda.empty_cache()
+
+        # 4. train -> eval
+        res["train_to_eval"] = t2e = train_to_eval(dev, root / "t2e", card)
+        check_train_to_eval(t2e)
+    return res
+
+
+def t2e_batch(world) -> dict:
+    """All consecutive pairs of the world, both directions, as one batch of
+    the dataset contract (numpy)."""
+    import numpy as np
+
+    keys = ("im_A", "im_B", "im_A_depth", "im_B_depth", "T_1to2")
+    rows: dict[str, list] = {k: [] for k in keys}
+    for i in range(len(world["imgs"]) - 1):
+        for a, b in ((i, i + 1), (i + 1, i)):
+            vals = (world["imgs"][a], world["imgs"][b], world["depths"][a], world["depths"][b],
+                    world["poses"][b] @ np.linalg.inv(world["poses"][a]))
+            for k, v in zip(keys, vals):
+                rows[k].append(v)
+    batch = {k: np.stack(v) for k, v in rows.items()}
+    batch["T_1to2"] = batch["T_1to2"].astype(np.float32)
+    K = np.tile(world["Ks"][0][None], (len(batch["im_A"]), 1, 1)).astype(np.float32)
+    batch["K1"], batch["K2"] = K, K.copy()
+    return batch
+
+
+def train_to_eval(dev, root: Path, card: str | None = None, steps: int = T2E_STEPS,
+                  seed: int = SEED, init: str = "flax") -> dict:
+    """tests/test_train_to_eval.py through the port on `dev`: Tiny RoMa
+    (match_dim 64, fine_match_dim 32, float32; `init` "flax": the JAX
+    package's initialisation, as the JAX test's TinyRoma starts, or "torch":
+    the port's PyTorch default; drawn from `seed`) trained `steps` steps on
+    the 96x128 two-plane world (its 4 consecutive pairs, both directions:
+    batch 8) with the test's loss and train settings, then AUC@5 through the
+    port's Mega-1500 harness (native estimator, 2500 samples, 3 runs).
+    `check_train_to_eval` holds the result to the JAX test's gates."""
+    import numpy as np
+    import torch
+
+    from roma_torch.benchmarks.megadepth_pose import MegaDepthPoseEstimationBenchmark
+    from roma_torch.config import TinyRomaConfig, TrainConfig
+    from roma_torch.losses.robust_loss import RobustLossConfig, tiny_robust_loss
+    from roma_torch.models.layers import flax_conv_init_
+    from roma_torch.models.tiny_roma import TinyRomaMatcher
+    from roma_torch.models.zoo import build_model
+    from roma_torch.train.train import make_tiny_train_state, make_train_step
+
+    world = write_two_plane_scene(root, range(T2E_CAMS), [WORLD_HW] * T2E_CAMS)
+    cfg = TinyRomaConfig(match_dim=64, fine_match_dim=32, dtype="float32")
+    model = build_model(cfg, seed)
+    if init == "flax":  # ROADMAP C9: from PyTorch's default the same steps reach a lower AUC@5
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            flax_conv_init_(model)
+    # the LR decays 5x after ~400 steps (the test's schedule)
+    tcfg = TrainConfig(batch_size=8, lr_decoder=1e-3, grad_clip=1.0, steps=8 * steps,
+                       milestone_frac=0.67)
+    state = make_tiny_train_state(tcfg, model=model, trainable="all", device=dev)
+    loss_cfg = RobustLossConfig(ce_weight=0.01, alpha={4: 0.15, 8: 0.15}, c=1e-4,
+                                local_dist={4: 4}, epe_mask_prob_th=0.001,
+                                corr_volume_weight=1.0)
+    step = make_train_step(tiny_robust_loss, loss_cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in t2e_batch(world).items()}
+
+    def auc():
+        bench = MegaDepthPoseEstimationBenchmark(
+            data_root=str(root), scene_names=["scene.npz"], pose_backend="native",
+            num_ransac_runs=3, sample_num=2500)
+        return bench.benchmark(TinyRomaMatcher(state.model, device=dev))
+
+    res = {"init": init, "seed": seed, "auc_init": auc()}
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(metrics["total_loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    res.update(train_s=time.perf_counter() - t0, loss_first=float(np.median(losses[:20])),
+               loss_last=float(np.median(losses[-20:])), auc=auc())
+    if card is not None:
+        print(f"[{card}] train -> eval: Tiny RoMa (64/32, float32, {init} init, seed {seed}) "
+              f"{steps} steps at 96x128, batch 8, in {res['train_s']:.2f} s; median loss "
+              f"{res['loss_first']:.4f} -> {res['loss_last']:.4f}; AUC untrained "
+              f"{json.dumps(res['auc_init'])}, trained {json.dumps(res['auc'])}", flush=True)
+    return res
+
+
+def check_train_to_eval(res: dict) -> None:
+    """The JAX test's gates: the loss's median over the last 20 steps below
+    0.85x the first 20's, AUC@5 > 0.5 and > the untrained AUC@5 + 0.3."""
+    fail_if(not res["loss_last"] < 0.85 * res["loss_first"], f"train -> eval: loss {res}")
+    fail_if(not res["auc"]["auc_5"] > 0.5, f"train -> eval: AUC@5 {res['auc']['auc_5']} <= 0.5")
+    fail_if(not res["auc"]["auc_5"] > res["auc_init"]["auc_5"] + 0.3,
+            f"train -> eval: AUC@5 {res['auc']['auc_5']} not above the untrained "
+            f"{res['auc_init']['auc_5']} + 0.3")
+
+
+def t2e_sweep(seeds: int = 5, inits: tuple[str, ...] = ("flax", "torch")) -> list[dict]:
+    """`train_to_eval` on the GPU once per seed and initialisation, one
+    JSON line a run (AUC@5, the last loss, whether the JAX test's gates
+    hold), after the card's name and power limit:
+
+        python3 -c "import chip_smoke; chip_smoke.t2e_sweep(5)"
+    """
+    import torch
+
+    fail_if(not torch.cuda.is_available(), "t2e_sweep: no GPU")
+    print(gpu_line(), flush=True)
+    rows = []
+    for init in inits:
+        for seed in range(seeds):
+            with tempfile.TemporaryDirectory() as tmp:
+                res = train_to_eval(torch.device("cuda", 0), Path(tmp), seed=seed, init=init)
+            try:
+                check_train_to_eval(res)
+                ok = True
+            except SmokeFailure:
+                ok = False
+            rows.append({"init": init, "seed": seed, "auc_5": res["auc"]["auc_5"],
+                         "auc_5_untrained": res["auc_init"]["auc_5"],
+                         "loss_last": res["loss_last"], "train_s": res["train_s"],
+                         "gates_hold": ok})
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def expected_launches(cfg) -> dict:
     """Launches of one default full-RoMa match()."""
     return {
@@ -2290,6 +2802,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     import roma_torch  # noqa: F401  (sets the TF32 switches off)
+    from roma_torch.benchmarks.pose_backends import bind_native
     from roma_torch.kernels import runtime
     from roma_torch.models.zoo import roma_outdoor
 
@@ -2301,6 +2814,8 @@ def main() -> int:
     t0 = time.perf_counter()
     planted_dir = tempfile.TemporaryDirectory()
     planted = start_planted_build(Path(planted_dir.name))  # beside the main build
+    # the native estimator (g++) builds beside the kernels too; run_eval waits for it
+    threading.Thread(target=bind_native, daemon=True).start()
     report["ptxas"] = runtime.build()
     report["build_s"] = time.perf_counter() - t0
     print(f"[{card}] built {len(runtime.SOURCES)} kernel sources in {report['build_s']:.1f} s",
@@ -2368,6 +2883,7 @@ def main() -> int:
         report["profile"] = profile_match(matcher, *ims, out_dir, "roma.", "profile_match.txt")
         print(f"[{card}] profile: {json.dumps(report['profile'])}", flush=True)
     report["match_raw"] = run_match_raw(matcher, card)
+    report["eval"] = run_eval(matcher, card, out_dir if args.profile else None)
     del matcher
     torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):

@@ -23,6 +23,7 @@ statistics.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import torch
@@ -120,6 +121,29 @@ def checkpoint(fn, *args):
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the last axis in float32."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+
+
+# the standard deviation of a unit normal truncated to [-2, 2]
+# (jax.nn.initializers.variance_scaling's correction)
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def flax_conv_init_(module: nn.Module) -> nn.Module:
+    """Re-initialise every Conv2d in `module` as flax's ``nn.Conv`` default
+    initialises the JAX package's layers: weights from ``lecun_normal`` (a
+    normal truncated at two standard deviations, scaled to variance
+    1 / fan_in) and zero biases, drawn from the global torch generator.
+    The port's modules keep PyTorch's default (kaiming-uniform with
+    a = sqrt(5): variance 1 / (3 fan_in), uniform biases), from which Tiny
+    RoMa trains more slowly (ROADMAP C9)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            std = math.sqrt(1.0 / m.weight[0].numel()) / TRUNC_NORMAL_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std, b=2.0 * std)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return module
 
 
 class ConvBlock(nn.Module):

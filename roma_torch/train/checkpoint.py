@@ -66,3 +66,13 @@ class CheckPoint:
             for name, t in ema.items():
                 t.copy_(blob["ema"][name])
         return state
+
+    def load_model(self, model, step: int | None = None):
+        """Restore only the model's weights (evaluation) from `step`, by
+        default the latest pointer's; raises when there is no checkpoint."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.root}")
+        blob = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        model.load_state_dict(blob["model"])
+        return model

@@ -103,3 +103,69 @@ def get_gt_warp(depth1, depth2, T_1to2, K1, K2, H: int, W: int,
     mask, x2 = warp_kpts(grid, depth1, depth2, T_1to2, K1, K2,
                          relative_depth_error_threshold=relative_depth_error_threshold)
     return x2.reshape(B, H, W, 2), mask.float().reshape(B, H, W)
+
+
+# ---------------------------------------------------------------------------
+# pose errors + AUC (host-side, numpy)
+# ---------------------------------------------------------------------------
+
+def compute_relative_pose(R1, t1, R2, t2):
+    """World-to-cam (R1, t1), (R2, t2) -> relative (R, t) taking cam1 to cam2."""
+    R1, t1, R2, t2 = (np.asarray(a) for a in (R1, t1, R2, t2))
+    rots = R2 @ R1.T
+    trans = -rots @ t1 + t2
+    return rots, trans
+
+
+def angle_error_mat(R1, R2) -> float:
+    cos = (np.trace(np.asarray(R1).T @ np.asarray(R2)) - 1) / 2
+    return float(np.rad2deg(np.abs(np.arccos(np.clip(cos, -1.0, 1.0)))))
+
+
+def angle_error_vec(v1, v2) -> float:
+    v1, v2 = np.asarray(v1).ravel(), np.asarray(v2).ravel()
+    n = np.linalg.norm(v1) * np.linalg.norm(v2)
+    return float(np.rad2deg(np.arccos(np.clip(np.dot(v1, v2) / n, -1.0, 1.0))))
+
+
+def compute_pose_error(T_0to1, R, t) -> tuple[float, float]:
+    """Angular translation/rotation error vs a (3x4 | 4x4) GT relative pose."""
+    T_0to1 = np.asarray(T_0to1)
+    error_t = angle_error_vec(t, T_0to1[:3, 3])
+    error_t = min(error_t, 180 - error_t)  # E-matrix sign ambiguity
+    error_R = angle_error_mat(R, T_0to1[:3, :3])
+    return error_t, error_R
+
+
+def pose_auc(errors, thresholds) -> list[float]:
+    """Trapezoid AUC of the recall-vs-error curve at each threshold (the
+    reference's protocol for the Mega-1500 numbers)."""
+    errors = np.sort(np.asarray(errors, dtype=np.float64))
+    recall = (np.arange(len(errors)) + 1) / len(errors)
+    errors = np.r_[0.0, errors]
+    recall = np.r_[0.0, recall]
+    aucs = []
+    for t in thresholds:
+        last_index = np.searchsorted(errors, t)
+        r = np.r_[recall[:last_index], recall[last_index - 1]]
+        e = np.r_[errors[:last_index], t]
+        aucs.append(float(np.trapezoid(r, x=e) / t))
+    return aucs
+
+
+def signed_point_line_distance(point: torch.Tensor, line: torch.Tensor,
+                               eps: float = 1e-9) -> torch.Tensor:
+    """Signed distance from (*, N, 2|3) points to (*, N, 3) lines ax+by+c=0."""
+    num = line[..., 0] * point[..., 0] + line[..., 1] * point[..., 1] + line[..., 2]
+    den = torch.linalg.norm(line[..., :2], dim=-1)
+    return num / (den + eps)
+
+
+def signed_left_to_right_epipolar_distance(pts1: torch.Tensor, pts2: torch.Tensor,
+                                           Fm: torch.Tensor) -> torch.Tensor:
+    """Distance from right-image points to the epipolar lines of the
+    corresponding left-image points."""
+    if pts1.shape[-1] == 2:
+        pts1 = torch.cat([pts1, torch.ones_like(pts1[..., :1])], dim=-1)
+    line1_in_2 = pts1 @ Fm.transpose(-2, -1)
+    return signed_point_line_distance(pts2, line1_in_2)

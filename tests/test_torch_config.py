@@ -58,11 +58,37 @@ def test_port_imports_no_jax_or_jax_package():
             "roma_torch/kernels/dw_affine_relu.py", "roma_torch/kernels/dw_block_mm.py",
             "roma_torch/models/api.py", "roma_torch/losses/robust_loss.py",
             "roma_torch/train/train.py", "roma_torch/train/checkpoint.py",
-            "roma_torch/train/logging.py", "roma_torch/train/grad_parity.py"} <= names
+            "roma_torch/train/logging.py", "roma_torch/train/grad_parity.py",
+            "roma_torch/utils/geometry.py", "roma_torch/estimation/__init__.py",
+            "roma_torch/estimation/ransac.py", "roma_torch/estimation/essential.py",
+            "roma_torch/estimation/fivepoint.py", "roma_torch/estimation/fundamental.py",
+            "roma_torch/estimation/homography.py", "roma_torch/estimation/native.py",
+            "roma_torch/benchmarks/__init__.py", "roma_torch/benchmarks/harness_core.py",
+            "roma_torch/benchmarks/pose_backends.py", "roma_torch/benchmarks/megadepth_pose.py",
+            "roma_torch/benchmarks/scannet.py", "roma_torch/benchmarks/hpatches.py",
+            "roma_torch/benchmarks/dense.py", "roma_torch/experiments/eval_roma_outdoor.py",
+            "roma_torch/experiments/eval_tiny_roma_v1_outdoor.py",
+            "roma_torch/experiments/match.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
             assert root not in BANNED, f"{f.relative_to(REPO)} imports {mod}"
+
+
+def test_native_estimator_builds_from_the_ports_sources(monkeypatch):
+    """The port's native estimator resolves its C++ sources under
+    roma_torch/native/ (never the JAX side's native/) and builds into the
+    repository's build/native/."""
+    from roma_torch.estimation import native
+
+    assert native.NATIVE_DIR == REPO / "roma_torch" / "native"
+    assert {"ransac.cpp", "linalg.h", "Makefile"} <= {p.name for p in native.NATIVE_DIR.iterdir()}
+    assert native.LIB_PATH == REPO / "build" / "native" / "libransac.so"
+    runs = []
+    monkeypatch.setattr(native.subprocess, "run", lambda cmd, **kw: runs.append(cmd))
+    native._build()
+    assert runs == [["make", "-C", str(REPO / "roma_torch" / "native"),
+                     f"OUT={REPO / 'build' / 'native'}"]]
 
 
 def test_cuda_request_without_gpu_raises():
