@@ -94,9 +94,29 @@
    debug mode "warn", pairs/s, the match's device time, the estimator
    pool's time, with --profile the device idle share of one eval; then
    train -> eval: Tiny RoMa trained 600 steps on the 96x128 world of
-   tests/test_train_to_eval.py reaches AUC@5 > 0.5 and > untrained + 0.3
-   through the port's harness;
-14. prints the kernels JSON line, then {"ok": true, "device": ...} last.
+   tests/test_train_to_eval.py from `build_model`'s default init (the JAX
+   package's) reaches AUC@5 > 0.5 and > untrained + 0.3 through the
+   port's harness;
+14. SfM (run_sfm): the JAX study's bundle adjustment at its full sizes
+   (experiments/sfm_scale.py's worlds and pose-graph init from the same
+   seeds: 100 cams / 10k pts / 249,574 obs dense, 1k cams / 100k pts /
+   846,122 obs CG; 30 LM iterations, Huber 3 px, gate 20 px), the
+   deterministic 100-camera run's ATE rmse within 5% and cost within 1%
+   of the JAX package's CPU reading, every run below its start; one LM
+   candidate step of each device solve at lambda 1e-4 .. 1e-1 against a
+   float64 oracle (at 1e-1 the camera delta within 1e-6, where the
+   float32 solve alone is not, 2e-6 with atomics; the cost after it within
+   1e-4 of the oracle's and, at 100 cameras, the JAX package's);
+   no host sync inside an LM iteration (sync debug mode "warn"); chunked
+   (iters_per_launch) against single and one NCCL rank against no mesh,
+   with and without torch.use_deterministic_algorithms (gated on the
+   deterministic runs, 1e-6); `reconstruct` on exact-warp matches of 8
+   images rendered along tests/test_sfm.py's curved trajectory (ATE rmse <
+   0.02, wall by stage); the SfM CLI (roma_torch/experiments/
+   sfm_reconstruct.py --matcher roma) with full-width roma_outdoor(), each
+   window pair's match counted (K1-K4 as `expected_launches`), the .npz
+   finite; with --profile, 3 LM iterations of the 1k CG run traced;
+15. prints the kernels JSON line, then {"ok": true, "device": ...} last.
 
 Any failure exits non-zero before the last line. Detailed per-shape results
 go to DIR/chip_smoke.json (default results/chip_smoke/).
@@ -107,6 +127,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -2361,6 +2382,497 @@ class EngineOracle:
         return torch.stack(self.warps[sel]), torch.stack(self.certs[sel])
 
 
+SFM_CAMS = 8
+SFM_HW = (480, 640)        # the rendered images of the SfM phase
+SFM_WINDOW = 3
+SFM_MATCHES = 2000         # the SfM CLI's --num_matches
+
+
+def sfm_pose(i: int):
+    """World-to-camera pose of camera i on tests/test_sfm.py's curved
+    trajectory (4 degrees of yaw a step, centers (0.5 i, 0.4 sin 1.1 i,
+    0.25 cos 0.9 i - 0.25)): collinear centers (`ring_pose`) are degenerate
+    for direction-based translation averaging."""
+    import numpy as np
+
+    a = np.deg2rad(4.0 * i)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    c = np.array([0.5 * i, 0.4 * np.sin(1.1 * i), 0.25 * np.cos(0.9 * i) - 0.25])
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, -R @ c
+    return T
+
+
+def write_sfm_scene(root: Path, n: int = SFM_CAMS, hw=SFM_HW, seed: int = 3) -> dict:
+    """Render the two-plane world from `sfm_pose(0..n-1)` at hw into
+    root/images (PNG), with the shared intrinsics as root/K.txt and the
+    camera centers as root/centers.npy (the SfM CLI's --intrinsics and
+    --gt_trajectory). Returns the poses, K, centers and paths."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    tex_near, tex_far = smooth_texture(rng), smooth_texture(rng)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    K = world_K(hw)
+    poses = [sfm_pose(i) for i in range(n)]
+    for i, T in enumerate(poses):
+        img, _ = render_two_plane(T, K, hw, tex_near, tex_far)
+        Image.fromarray((img * 255).astype(np.uint8)).save(root / "images" / f"sfm_{i:02d}.png")
+    centers = np.stack([-T[:3, :3].T @ T[:3, 3] for T in poses])
+    np.savetxt(root / "K.txt", K)
+    np.save(root / "centers.npy", centers)
+    return {"images": root / "images", "poses": poses, "K": K, "centers": centers,
+            "intrinsics": root / "K.txt", "gt_trajectory": root / "centers.npy", "hw": hw}
+
+
+class ExactWarpMatcher:
+    """Stands for a matcher in the SfM CLI: `match` hands out the exact
+    two-plane warps of the window pairs, in the CLI's order, at the images'
+    size (one-sided (H, W, 4), certainty 0.9 where B sees the point);
+    `sample` (balanced) and `to_pixel_coordinates` are Tiny RoMa's own."""
+
+    def __init__(self, scene: dict, window: int, dev):
+        import torch
+
+        from roma_torch.config import TinyRomaConfig
+        from roma_torch.models.tiny_roma import TinyRomaMatcher
+
+        for name in ("sample", "to_pixel_coordinates"):
+            setattr(self, name, getattr(TinyRomaMatcher, name).__get__(self))
+        self.cfg, self.device = TinyRomaConfig(), torch.device(dev)
+        n = len(scene["poses"])
+        self.pairs = [(i, j) for i in range(n) for j in range(i + 1, min(i + 1 + window, n))]
+        self.scene, self.next = scene, 0
+
+    def match(self, im_a, im_b):
+        import torch
+
+        i, j = self.pairs[self.next]
+        self.next += 1
+        warp, cert = two_plane_warp(self.scene["poses"][i], self.scene["poses"][j],
+                                    self.scene["hw"])
+        return torch.from_numpy(warp).to(self.device), torch.from_numpy(cert).to(self.device)
+
+
+def exact_sfm_matches(scene: dict, dev, window: int = SFM_WINDOW, num: int = SFM_MATCHES,
+                      seed: int = 0) -> dict:
+    """The SfM CLI's matches from the exact warps: {(i, j): (kpts_i, kpts_j)}
+    in pixels, `num` balanced samples a window pair, one generator."""
+    import torch
+
+    m = ExactWarpMatcher(scene, window, dev)
+    gen = torch.Generator(device=m.device).manual_seed(seed)
+    h, w = scene["hw"]
+    out = {}
+    for i, j in list(m.pairs):
+        warp, cert = m.match(None, None)
+        sparse, _ = m.sample(warp, cert, num, generator=gen)
+        out[(i, j)] = tuple(m.to_pixel_coordinates(sparse[:, k:k + 2], h, w).cpu().numpy()
+                            for k in (0, 2))
+    return out
+
+
+# The JAX package's readings on the same worlds, from experiments/sfm_scale.py
+# on an x86-64 CPU (Intel Xeon; float32 with its float64 refinement; SFM.md):
+#   --cams 100 --pts 10000 --ba-iters 30 --device-driver --skip-scaling
+#   --cams 1000 --pts 100000 --obs-per-cam 1200 --ba-iters 30 --device-driver
+#       --solver cg --skip-scaling
+# "jax": ATE rmse, ATE median, robust cost after 30 LM iterations. The
+# deterministic 100-camera run is held to it (cost 1%, ATE rmse 5%). The
+# 1k CG run's 30th iterate is no yardstick (ROADMAP C11): the float32
+# triangulation of its tracks puts 1% of the start points more than 13
+# units (the scene is ~20 across) apart between the JAX package's CPU, the
+# port's CPU and the card, and from one start the LM branches on rounding
+# (at lambda 1e-4 the float32 inner CG's step lies tens to hundreds of its
+# own lengths from the exact step), the JAX package's own reading moving
+# 26% with the observation order. Its gate, and the atomics runs', is
+# SFM_STEP.
+# "jax_step": the JAX package's one-step reading on the CPU from the same
+# start state, the robust cost after each device solve's candidate step at
+# SFM_STEP's lambda (`PYTHONPATH=. python tests/test_torch_sfm_cli.py step
+# 100 10000 - cg,dense`); none at 1k, whose start state is the device's own.
+SFM_WORLDS = {
+    "dense_100": dict(cams=100, pts=10000, obs_per_cam=None, solver="dense", n_obs=249574,
+                      init=(0.5396, 0.4163), jax=(0.2469, 0.1020, 106157.945),
+                      steps=("dense", "cg"), jax_step={"dense": 51335900.0, "cg": 51335900.0}),
+    "cg_1k": dict(cams=1000, pts=100000, obs_per_cam=1200, solver="cg", n_obs=846122,
+                  init=(0.4604, 0.3681), jax=(0.3994, 0.2840, 3625130.0),
+                  steps=("cg",), jax_step=None),
+}
+SFM_BA = dict(iters=30, huber_delta=3.0, max_err_px=20.0)
+SFM_COST_RTOL, SFM_ATE_RTOL = 0.01, 0.05
+SFM_CHUNK = dict(iters=12, refilter_every=5, chunk=4)
+# One LM candidate step (roma_torch/experiments/sfm_study.py): each world's
+# device solves ("steps") at every lambda, with atomics and deterministic,
+# against schur_oracle_f64 on the same damped blocks. At `lam`: under
+# deterministic algorithms the refined solve's camera delta lies within
+# `dc_rtol` (relative L2) of the oracle's and the float32 solve alone (no
+# float64 refinement) does not; with atomics the refined one within
+# `atomics` x dc_rtol (the inner float32 CG's atomics reorder every
+# matvec); the cost after the refined step within `cost_rtol` of the JAX
+# package's reading and of the oracle's step. The smaller lambdas are
+# reported: there the float32 CG does not converge.
+SFM_STEP = dict(lams=(1e-4, 1e-3, 1e-2, 1e-1), lam=1e-1, dc_rtol=1e-6, atomics=2.0,
+                cost_rtol=1e-4)
+
+
+def sfm_world(name: str, dev) -> tuple[dict, object, dict]:
+    """(world, the BA problem on `dev`, ATE after the pose-graph init) of
+    SFM_WORLDS[name], through the port's sfm_scale (the JAX study's seeds)."""
+    from roma_torch.experiments.sfm_study import study_problem
+
+    spec = SFM_WORLDS[name]
+    world, problem, ate_init = study_problem(spec["cams"], spec["pts"], spec["obs_per_cam"], dev)
+    fail_if(len(world["uv"]) != spec["n_obs"],
+            f"sfm {name}: {len(world['uv'])} observations, the JAX study's {spec['n_obs']}")
+    return world, problem, ate_init
+
+
+def run_sfm_ba(name: str, dev, card: str) -> tuple[dict, object]:
+    """The study's BA on SFM_WORLDS[name] on the card (30 LM iterations,
+    Huber 3 px, gate 20 px), after one untimed iteration (the process's
+    first BA call initialises cuBLAS, cuSOLVER and torch.func): once with
+    index_add_'s atomics (the default) and once under
+    torch.use_deterministic_algorithms(True). Every run: finite, below the
+    init's ATE and the cost the LM starts from. The deterministic
+    100-camera run: ATE rmse within 5% and the cost within 1% of the JAX
+    package's reading; the others are printed beside it (SFM_WORLDS: their
+    gate is `check_sfm_steps`). Each: ATE after BA, the robust cost, wall
+    and ms an LM iteration, peak memory. Returns (result, problem)."""
+    import torch
+
+    from roma_torch.experiments.sfm_scale import camera_centers
+    from roma_torch.experiments.sfm_study import start_state
+    from roma_torch.sfm.bundle_adjust import _ba_cost, bundle_adjust_device
+    from roma_torch.sfm.metrics import absolute_trajectory_error
+
+    spec = SFM_WORLDS[name]
+    jax_rmse, _, jax_cost = spec["jax"]
+    t0 = time.perf_counter()
+    world, problem, ate_init = sfm_world(name, dev)
+    cost_init = float(_ba_cost(start_state(problem), SFM_BA["huber_delta"]))
+    res = {"cams": spec["cams"], "pts": spec["pts"], "n_obs": spec["n_obs"],
+           "solver": spec["solver"], "setup_s": time.perf_counter() - t0,
+           "ate_init": [ate_init["ate_rmse"], ate_init["ate_median"]], "cost_init": cost_init,
+           "jax_cpu": spec["jax"]}
+    fail_if(abs(ate_init["ate_rmse"] - spec["init"][0]) > 1e-4,
+            f"sfm {name}: the pose-graph init's ATE {ate_init['ate_rmse']} is not the study's")
+    t0 = time.perf_counter()
+    bundle_adjust_device(problem, iters=1, solver=spec["solver"], huber_delta=3.0)
+    res["warmup_s"] = time.perf_counter() - t0
+    for mode in ("atomics", "deterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            refined, cost = bundle_adjust_device(problem, solver=spec["solver"], **SFM_BA)
+            wall_s = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ate = absolute_trajectory_error(camera_centers(refined.cameras), world["centers"])
+        res[mode] = row = {
+            "ate": [ate["ate_rmse"], ate["ate_median"]], "cost": cost, "wall_s": wall_s,
+            "ms_per_iter": wall_s / SFM_BA["iters"] * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cost_vs_jax": cost / jax_cost - 1, "ate_rmse_vs_jax": ate["ate_rmse"] / jax_rmse - 1}
+        gated = name == "dense_100" and mode == "deterministic"
+        print(f"[{card}] sfm BA {name} ({mode}): {spec['cams']} cams, {spec['pts']} pts, "
+              f"{spec['n_obs']} obs, {spec['solver']}, {SFM_BA['iters']} LM iters: ATE init "
+              f"{res['ate_init'][0]:.4f} / {res['ate_init'][1]:.4f} -> {ate['ate_rmse']:.4f} / "
+              f"{ate['ate_median']:.4f}, robust cost {cost:.3f} (JAX CPU {jax_rmse:.4f} / "
+              f"{spec['jax'][1]:.4f}, {jax_cost:.3f}: ATE rmse {row['ate_rmse_vs_jax']:+.2%}, "
+              f"cost {row['cost_vs_jax']:+.2%}, "
+              f"{'gated' if gated else 'not gated (C11; check_sfm_steps is its gate)'}); "
+              f"{wall_s:.3f} s, {row['ms_per_iter']:.2f} ms an "
+              f"LM iteration; peak {row['peak_mem_gb']:.2f} GB; world + init "
+              f"{res['setup_s']:.1f} s, one warm-up iteration {res['warmup_s']:.2f} s", flush=True)
+        fail_if(not (math.isfinite(cost) and cost < cost_init
+                     and ate["ate_rmse"] < ate_init["ate_rmse"]),
+                f"sfm {name} ({mode}): cost {cost} (init {cost_init}), ATE {ate['ate_rmse']} "
+                f"(init {ate_init})")
+        if gated:
+            fail_if(abs(row["cost_vs_jax"]) > SFM_COST_RTOL,
+                    f"sfm {name}: cost {cost} vs the JAX package's {jax_cost}")
+            fail_if(abs(row["ate_rmse_vs_jax"]) > SFM_ATE_RTOL,
+                    f"sfm {name}: ATE rmse {ate['ate_rmse']} vs the JAX package's {jax_rmse}")
+    return res, problem
+
+
+def check_sfm_steps(name: str, problem, card: str) -> list[dict]:
+    """One LM candidate step from the study's start state (the init, gated
+    at 20 px with the 0.9 quantile) at each of SFM_STEP's lambdas: each of
+    the world's device solves, refined and float32 alone, with atomics and
+    deterministic, against the float64 oracle (sfm_study.step_errors).
+    Gated at SFM_STEP["lam"] (see SFM_STEP)."""
+    from roma_torch.experiments import sfm_study
+
+    spec = SFM_WORLDS[name]
+    t0 = time.perf_counter()
+    rows = sfm_study.step_errors(sfm_study.start_state(problem), SFM_STEP["lams"],
+                                 spec["steps"], ("atomics", "deterministic"))
+    wall_s = time.perf_counter() - t0
+    for r in rows:
+        print(f"[{card}] sfm step {name}: {json.dumps(r)}", flush=True)
+    print(f"[{card}] sfm step {name}: {len(rows)} rows in {wall_s:.1f} s", flush=True)
+    for r in rows:
+        if r["lam"] != SFM_STEP["lam"]:
+            continue
+        what = f"sfm step {name} {r['solver']} ({r['mode']}) at lambda {r['lam']}"
+        det = r["mode"] == "deterministic"
+        tol = SFM_STEP["dc_rtol"] * (1.0 if det else SFM_STEP["atomics"])
+        fail_if(not r["refined"]["dc_rel_l2"] <= tol,
+                f"{what}: camera delta {r['refined']['dc_rel_l2']:.3e} from the float64 "
+                f"oracle's (tolerance {tol:.1e})")
+        fail_if(det and not r["float32"]["dc_rel_l2"] > tol,
+                f"{what}: the float32 solve alone passes the gate too "
+                f"({r['float32']['dc_rel_l2']:.3e}): the gate cannot see the refinement")
+        refs = {"the oracle's step": r["oracle_cost"]}
+        if spec["jax_step"] is not None:
+            refs["the JAX package's"] = spec["jax_step"][r["solver"]]
+        for ref_name, ref in refs.items():
+            fail_if(not abs(r["refined"]["cost"] / ref - 1) <= SFM_STEP["cost_rtol"],
+                    f"{what}: cost after the step {r['refined']['cost']} vs {ref_name} {ref}")
+    return rows
+
+
+def count_ba_syncs(problem, solver: str) -> dict:
+    """Synchronizing calls (sync debug mode "warn") in two LM iterations of
+    the device driver, both refiltering (refilter_every=1), a readback
+    barrier after each (iters_per_launch=1): only the driver's cost
+    readbacks may sync, none inside an iteration."""
+    import linecache
+    import warnings
+
+    import torch
+
+    from roma_torch.sfm.bundle_adjust import bundle_adjust_device
+
+    syncs: dict[str, int] = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = lambda message, *a, **k: record_sync(message, syncs)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            bundle_adjust_device(problem, iters=2, solver=solver, refilter_every=1,
+                                 iters_per_launch=1, huber_delta=3.0, max_err_px=20.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    def readback(key: str) -> bool:  # a line of the repository reading the cost back
+        path, _, line = key.partition(" ")[0].partition(":")
+        return line.isdigit() and "float(cost)" in linecache.getline(str(ROOT / path), int(line))
+
+    inside = {k: n for k, n in syncs.items() if not readback(k)}
+    return {"syncs": syncs, "inside_an_iteration": inside}
+
+
+def compare_ba_runs(problem, dev, card: str, mesh=None) -> dict:
+    """The device driver (dense, 12 iterations, refilter every 5) run single
+    and chunked (iters_per_launch=4), and with `mesh` against without:
+    without and then with torch.use_deterministic_algorithms(True) (the
+    sorted scatter in place of index_add_'s atomics). Differences: the
+    cost's relative difference and the cameras' largest."""
+    import torch
+
+    from roma_torch.sfm.bundle_adjust import bundle_adjust_device
+
+    kw = dict(iters=SFM_CHUNK["iters"], refilter_every=SFM_CHUNK["refilter_every"],
+              huber_delta=3.0, max_err_px=20.0)
+
+    def diff(a, b):
+        return {"cost_rel": abs(a[1] - b[1]) / abs(b[1]),
+                "cameras_max_abs": float((a[0].cameras - b[0].cameras).abs().max())}
+
+    out = {}
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det)
+        try:
+            single = bundle_adjust_device(problem, **kw)
+            again = bundle_adjust_device(problem, **kw)
+            chunked = bundle_adjust_device(problem, iters_per_launch=SFM_CHUNK["chunk"], **kw)
+            row = {"single_vs_single": diff(again, single), "chunked_vs_single": diff(chunked, single)}
+            if mesh is not None:
+                row["mesh_vs_plain"] = diff(bundle_adjust_device(problem, mesh=mesh, **kw), single)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["deterministic" if det else "atomics"] = row
+    print(f"[{card}] sfm BA dense_100, {kw['iters']} iters, chunked ({SFM_CHUNK['chunk']}) vs "
+          f"single and one NCCL rank vs no mesh: {json.dumps(out)}", flush=True)
+    det = out["deterministic"]
+    for what in [k for k in det if k != "single_vs_single"]:
+        fail_if(det[what]["cost_rel"] > 1e-6 or det[what]["cameras_max_abs"] > 1e-6,
+                f"sfm BA {what} (deterministic): {det[what]}")
+    return out
+
+
+def profile_ba(problem, solver: str, out_dir: Path, iters: int = 3) -> dict:
+    """torch.profiler over `iters` LM iterations of the device driver:
+    wall, device busy time, idle share, launches an iteration and the top
+    device ops (table in out_dir/profile_sfm_ba_{solver}.txt)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from roma_torch.sfm.bundle_adjust import bundle_adjust_device
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bundle_adjust_device(problem, iters=iters, solver=solver, huber_delta=3.0)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_self = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_self(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_self, reverse=True)[:12]
+    (out_dir / f"profile_sfm_ba_{solver}.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=60))
+    return {"iters": iters, "wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+            "kernel_launches_per_iter": sum(e.count for e in kernels) / iters,
+            "top_ops_ms": {e.key[:80]: dev_self(e) / 1e3 for e in top}}
+
+
+def run_sfm(dev, card: str, profile_dir: Path | None = None) -> dict:
+    """Path S, SfM (roma_torch/sfm and the two SfM CLIs), on the card:
+    the study's BA at its full sizes (100 cams dense; 1k cams CG) against
+    the JAX package's readings; host syncs in an LM iteration; chunked vs
+    single and one NCCL rank vs no mesh; `reconstruct` on exact-warp
+    matches of 8 rendered images (ATE < 0.02); the SfM CLI with full-width
+    roma_outdoor() (launches of each pair's match as `expected_launches`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from roma_torch.experiments import sfm_reconstruct
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.parallel.mesh import initialize_distributed, make_mesh
+    from roma_torch.sfm.metrics import absolute_trajectory_error
+    from roma_torch.sfm.reconstruction import reconstruct
+
+    res: dict = {}
+    res["dense_100"], p100 = run_sfm_ba("dense_100", dev, card)
+    res["dense_100"]["steps"] = check_sfm_steps("dense_100", p100, card)
+    if profile_dir is not None:
+        res["profile_dense_100"] = profile_ba(p100, "dense", profile_dir)
+        print(f"[{card}] sfm BA dense_100 profile: {json.dumps(res['profile_dense_100'])}",
+              flush=True)
+    res["syncs"] = {s: count_ba_syncs(p100, s) for s in ("dense", "cg")}
+    print(f"[{card}] sfm BA synchronizing calls in 2 LM iterations (sync debug mode warn): "
+          f"{json.dumps(res['syncs'])}", flush=True)
+    for s, r in res["syncs"].items():
+        fail_if(bool(r["inside_an_iteration"]), f"sfm BA {s}: host syncs {r['inside_an_iteration']}")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    try:
+        fail_if(initialize_distributed(dev) != (0, 1), "sfm: not rank 0 of 1")
+        fail_if(dist.get_backend() != "nccl", f"sfm: backend {dist.get_backend()}")
+        res["compare"] = compare_ba_runs(p100, dev, card, make_mesh(dev))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    del p100
+    torch.cuda.empty_cache()
+    res["cg_1k"], p1k = run_sfm_ba("cg_1k", dev, card)
+    res["cg_1k"]["steps"] = check_sfm_steps("cg_1k", p1k, card)
+    if profile_dir is not None:
+        res["profile_cg_1k"] = profile_ba(p1k, "cg", profile_dir)
+        print(f"[{card}] sfm BA cg_1k profile: {json.dumps(res['profile_cg_1k'])}", flush=True)
+    del p1k
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = write_sfm_scene(Path(tmp))
+        n = len(scene["poses"])
+        t0 = time.perf_counter()
+        matches = exact_sfm_matches(scene, dev)
+        match_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec = reconstruct(matches, np.tile(scene["K"], (n, 1, 1)).astype(np.float32), n,
+                          device=dev)
+        ate = absolute_trajectory_error(rec.centers, scene["centers"])
+        res["reconstruct_exact"] = {"images": n, "hw": list(SFM_HW), "pairs": len(matches),
+                                    "num_matches": SFM_MATCHES, "match_s": match_s,
+                                    "wall_s": time.perf_counter() - t0, "stages_s": rec.timings,
+                                    "points": len(rec.points), "cost": rec.cost,
+                                    "ate_rmse": ate["ate_rmse"], "ate_median": ate["ate_median"]}
+        print(f"[{card}] sfm reconstruct on exact-warp matches ({n} images {SFM_HW[0]}x"
+              f"{SFM_HW[1]}, window {SFM_WINDOW}, {SFM_MATCHES} a pair): ATE rmse "
+              f"{ate['ate_rmse']:.5f}, {len(rec.points)} points, cost {rec.cost:.4g}; stages "
+              f"{json.dumps(rec.timings)} s", flush=True)
+        fail_if(not ate["ate_rmse"] < 0.02, f"sfm reconstruct: ATE {ate}")
+
+        # the SfM CLI at full width: each pair's match counted
+        per_pair: list[dict] = []
+        expected: dict = {}
+
+        def counted_roma_outdoor(device=None):
+            from roma_torch.models.zoo import roma_outdoor
+
+            m = roma_outdoor(seed=SEED, device=device)
+            expected.update(expected_launches(m.cfg))
+            inner = m.match
+
+            def match(a, b, **kw):
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                out = inner(a, b, **kw)
+                torch.cuda.synchronize()
+                per_pair.append({"launches": dict(LAUNCHES),
+                                 "match_ms": (time.perf_counter() - t0) * 1e3})
+                return out
+
+            m.match = match
+            return m
+
+        saved = (sfm_reconstruct.DEVICE, sfm_reconstruct.roma_outdoor)
+        sfm_reconstruct.DEVICE, sfm_reconstruct.roma_outdoor = dev, counted_roma_outdoor
+        out = Path(tmp) / "sfm_cli.npz"
+        t0 = time.perf_counter()
+        try:
+            cli = sfm_reconstruct.main(["--images", str(scene["images"]), "--matcher", "roma",
+                                        "--window", str(SFM_WINDOW),
+                                        "--intrinsics", str(scene["intrinsics"]),
+                                        "--out", str(out)])
+            finding = None
+        except ValueError as e:  # random weights: possibly no usable two-view geometry
+            fail_if("no usable two-view geometries" not in str(e), f"sfm CLI: {e}")
+            cli, finding = None, str(e)
+        finally:
+            sfm_reconstruct.DEVICE, sfm_reconstruct.roma_outdoor = saved
+        wall_s = time.perf_counter() - t0
+        fail_if(len(per_pair) != len(matches), f"sfm CLI: {len(per_pair)} matches, "
+                f"expected {len(matches)}")
+        for i, r in enumerate(per_pair):
+            bad = {k: (r["launches"][k], n) for k, n in expected.items() if r["launches"][k] != n}
+            fail_if(bool(bad), f"sfm CLI pair {i}: launches {bad} (got, expected)")
+        row = {"pairs": len(per_pair), "launches_per_pair": per_pair[0]["launches"],
+               "match_ms": [r["match_ms"] for r in per_pair], "wall_s": wall_s,
+               "finding": finding}
+        if cli is not None:
+            rec = cli["reconstruction"]
+            row.update(pair_ms=[cli["pair_s"][k] * 1e3 for k in sorted(cli["pair_s"])],
+                       stages_s=rec.timings, points=len(rec.points), cost=rec.cost)
+            fail_if(not out.exists(), "sfm CLI: no .npz written")
+            saved_npz = np.load(out)
+            fail_if(not all(np.isfinite(saved_npz[k]).all() for k in saved_npz.files),
+                    "sfm CLI: non-finite poses or points")
+        res["cli_roma"] = row
+        print(f"[{card}] sfm CLI --matcher roma (full width, random weights) on {n} images, "
+              f"window {SFM_WINDOW}: {len(per_pair)} pairs, each pair's launches "
+              f"{per_pair[0]['launches']} (= expected_launches); match "
+              f"{median(sorted(row['match_ms'])):.1f} ms a pair (median), match + sample "
+              f"{median(sorted(row.get('pair_ms', [float('nan')]))):.1f} ms; stages "
+              f"{json.dumps(row.get('stages_s'))} s; {row.get('points')} points; whole CLI "
+              f"{wall_s:.1f} s" + (f"; FINDING: {finding}" if finding else ""), flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def harness_main_thread_syncs(syncs: dict[str, int]) -> dict[str, int]:
     """The syncs `record_sync` counted in the harness's own code on the main
     thread (its keys from other threads end in the thread's name; the
@@ -2587,9 +3099,9 @@ def t2e_batch(world) -> dict:
 def train_to_eval(dev, root: Path, card: str | None = None, steps: int = T2E_STEPS,
                   seed: int = SEED, init: str = "flax") -> dict:
     """tests/test_train_to_eval.py through the port on `dev`: Tiny RoMa
-    (match_dim 64, fine_match_dim 32, float32; `init` "flax": the JAX
-    package's initialisation, as the JAX test's TinyRoma starts, or "torch":
-    the port's PyTorch default; drawn from `seed`) trained `steps` steps on
+    (match_dim 64, fine_match_dim 32, float32; `init` "flax": `build_model`'s
+    default, the JAX package's initialisation, as the JAX test's TinyRoma
+    starts, or "torch": PyTorch's module defaults; drawn from `seed`) trained `steps` steps on
     the 96x128 two-plane world (its 4 consecutive pairs, both directions:
     batch 8) with the test's loss and train settings, then AUC@5 through the
     port's Mega-1500 harness (native estimator, 2500 samples, 3 runs).
@@ -2600,18 +3112,18 @@ def train_to_eval(dev, root: Path, card: str | None = None, steps: int = T2E_STE
     from roma_torch.benchmarks.megadepth_pose import MegaDepthPoseEstimationBenchmark
     from roma_torch.config import TinyRomaConfig, TrainConfig
     from roma_torch.losses.robust_loss import RobustLossConfig, tiny_robust_loss
-    from roma_torch.models.layers import flax_conv_init_
-    from roma_torch.models.tiny_roma import TinyRomaMatcher
+    from roma_torch.models.tiny_roma import TinyRoma, TinyRomaMatcher
     from roma_torch.models.zoo import build_model
     from roma_torch.train.train import make_tiny_train_state, make_train_step
 
     world = write_two_plane_scene(root, range(T2E_CAMS), [WORLD_HW] * T2E_CAMS)
     cfg = TinyRomaConfig(match_dim=64, fine_match_dim=32, dtype="float32")
-    model = build_model(cfg, seed)
-    if init == "flax":  # ROADMAP C9: from PyTorch's default the same steps reach a lower AUC@5
+    if init == "flax":  # build_model's default (ROADMAP C9)
+        model = build_model(cfg, seed)
+    else:  # PyTorch's module defaults, from which the same steps reach a lower AUC@5
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            flax_conv_init_(model)
+            model = TinyRoma(cfg)
     # the LR decays 5x after ~400 steps (the test's schedule)
     tcfg = TrainConfig(batch_size=8, lr_decoder=1e-3, grad_clip=1.0, steps=8 * steps,
                        milestone_frac=0.67)
@@ -2788,6 +3300,9 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "results" / "chip_smoke",
                     help="directory for chip_smoke.json and the profile table")
     args = ap.parse_args()
+    # cuBLAS's workspace for deterministic GEMMs (the SfM phase's comparison
+    # under torch.use_deterministic_algorithms); Hopper's default size
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -2922,6 +3437,8 @@ def main() -> int:
     report["debug_train_step"] = check_debug_train_step(dev, card)
     torch.cuda.empty_cache()
     report["tiny_train"] = run_tiny_training(dev, gen, card, out_dir if args.profile else None)
+    torch.cuda.empty_cache()
+    report["sfm"] = run_sfm(dev, card, out_dir if args.profile else None)
 
     # each kernel's launches come from the run of the path it serves
     train = report["train"]["launches"]

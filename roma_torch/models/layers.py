@@ -129,16 +129,16 @@ TRUNC_NORMAL_STD = 0.87962566103423978
 
 
 @torch.no_grad()
-def flax_conv_init_(module: nn.Module) -> nn.Module:
-    """Re-initialise every Conv2d in `module` as flax's ``nn.Conv`` default
-    initialises the JAX package's layers: weights from ``lecun_normal`` (a
-    normal truncated at two standard deviations, scaled to variance
-    1 / fan_in) and zero biases, drawn from the global torch generator.
-    The port's modules keep PyTorch's default (kaiming-uniform with
-    a = sqrt(5): variance 1 / (3 fan_in), uniform biases), from which Tiny
-    RoMa trains more slowly (ROADMAP C9)."""
+def flax_init_(module: nn.Module) -> nn.Module:
+    """Initialise every Conv2d and Linear in `module` as flax's ``nn.Conv``
+    and ``nn.Dense`` defaults initialise the JAX package's layers: weights
+    from ``lecun_normal`` (a normal truncated at two standard deviations,
+    scaled to variance 1 / fan_in) and zero biases, drawn from the global
+    torch generator. `build_model` applies it to Tiny RoMa (ROADMAP C9:
+    from PyTorch's default, kaiming-uniform with a = sqrt(5), variance
+    1 / (3 fan_in) and uniform biases, Tiny RoMa trains more slowly)."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             std = math.sqrt(1.0 / m.weight[0].numel()) / TRUNC_NORMAL_STD
             nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std, b=2.0 * std)
             if m.bias is not None:

@@ -8,15 +8,25 @@ from __future__ import annotations
 import torch
 
 from roma_torch.config import RefinerConfig, RomaConfig, TinyRomaConfig
+from roma_torch.models.layers import flax_init_
 from roma_torch.models.matcher import RomaMatcher, RomaModel
 from roma_torch.models.tiny_roma import TinyRoma, TinyRomaMatcher
 
 
 def build_model(cfg: RomaConfig | TinyRomaConfig, seed: int = 0) -> RomaModel | TinyRoma:
-    model_cls = TinyRoma if isinstance(cfg, TinyRomaConfig) else RomaModel
+    """The model of `cfg`, built on the CPU inside `fork_rng` from `seed`.
+    Tiny RoMa starts from the JAX package's initialisation: its weights are
+    `flax_init_`'s draw (flax's default for every convolution and dense
+    layer) right after `manual_seed(seed)`, whatever the constructor drew
+    before it, so they depend on the seed and the modules' order only.
+    Full RoMa keeps PyTorch's module defaults (ROADMAP C10)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return model_cls(cfg)
+        if not isinstance(cfg, TinyRomaConfig):
+            return RomaModel(cfg)
+        model = TinyRoma(cfg)
+        torch.manual_seed(seed)
+        return flax_init_(model)
 
 
 def roma_outdoor(

@@ -134,7 +134,10 @@ KINK_SENSITIVE: dict[str, tuple[float, float, float]] = {
 # tests/test_torch_tiny_train.py (JAX vs the port; the port against itself,
 # as above). DATA_PARALLEL_KINK_SENSITIVE: the debug-size full RoMa at batch
 # 4 of tests/test_torch_parallel.py, beside KINK_SENSITIVE (two gloo ranks
-# vs one process; the port against itself there). Its Tiny RoMa names none.
+# vs one process; the port against itself there). Its Tiny RoMa names none;
+# TINY_TIED_KINK_SENSITIVE: that Tiny RoMa with flax's initialisation drawn
+# without `build_model`'s re-seed, where one ReLU input lies within rounding
+# of 0 (ROADMAP C9).
 # Re-measure with `PYTHONPATH=. python tests/test_torch_tiny_train.py` and
 # `PYTHONPATH=. python tests/test_torch_parallel.py readings`.
 TINY_KINK_SENSITIVE: dict[str, tuple[float, ...]] = {
@@ -142,6 +145,27 @@ TINY_KINK_SENSITIVE: dict[str, tuple[float, ...]] = {
     "coarse_matcher.1.layer.0.weight": (2.7e-05, 0.0048),
     "coarse_matcher.2.layer.0.weight": (3.1e-05, 0.0042),
     "fine_matcher.0.layer.0.weight": (0.00104, 0.00104),
+}
+TINY_TIED_KINK_SENSITIVE: dict[str, tuple[float, ...]] = {
+    "xfeat.0.block1.0.layer.0.weight": (0.015, 0.015),
+    "xfeat.0.block1.1.layer.0.weight": (0.01, 0.01),
+    "xfeat.0.block1.2.layer.0.weight": (0.012, 0.012),
+    "xfeat.0.block1.3.layer.0.weight": (0.012, 0.012),
+    "xfeat.0.skip1.1.weight": (0.013, 0.013),
+    "xfeat.0.skip1.1.bias": (0.015, 0.015),
+    "xfeat.0.block2.0.layer.0.weight": (0.012, 0.012),
+    "xfeat.0.block2.1.layer.0.weight": (0.011, 0.011),
+    "xfeat.0.block3.0.layer.0.weight": (0.012, 0.012),
+    "xfeat.0.block3.1.layer.0.weight": (0.013, 0.013),
+    "xfeat.0.block3.2.layer.0.weight": (0.013, 0.013),
+    "xfeat.0.block4.0.layer.0.weight": (0.014, 0.014),
+    "xfeat.0.block4.1.layer.0.weight": (0.014, 0.014),
+    "xfeat.0.block4.2.layer.0.weight": (0.013, 0.013),
+    "xfeat.0.block5.0.layer.0.weight": (0.015, 0.015),
+    "coarse_matcher.0.layer.0.weight": (6e-06, 0.0051),
+    "coarse_matcher.1.layer.0.weight": (6.4e-06, 0.005),
+    "coarse_matcher.2.layer.0.weight": (6.9e-06, 0.0057),
+    "fine_matcher.0.layer.0.weight": (0.00085, 0.00085),
 }
 DATA_PARALLEL_KINK_SENSITIVE: dict[str, tuple[float, ...]] = {
     "decoder.conv_refiner.2.block1.3.bias": (0.00015, 0.0016),

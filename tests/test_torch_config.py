@@ -68,7 +68,11 @@ def test_port_imports_no_jax_or_jax_package():
             "roma_torch/benchmarks/scannet.py", "roma_torch/benchmarks/hpatches.py",
             "roma_torch/benchmarks/dense.py", "roma_torch/experiments/eval_roma_outdoor.py",
             "roma_torch/experiments/eval_tiny_roma_v1_outdoor.py",
-            "roma_torch/experiments/match.py"} <= names
+            "roma_torch/experiments/match.py", "roma_torch/sfm/__init__.py",
+            "roma_torch/sfm/tracks.py", "roma_torch/sfm/pose_graph.py",
+            "roma_torch/sfm/metrics.py", "roma_torch/sfm/bundle_adjust.py",
+            "roma_torch/sfm/reconstruction.py", "roma_torch/experiments/sfm_reconstruct.py",
+            "roma_torch/experiments/sfm_scale.py", "roma_torch/experiments/sfm_study.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]

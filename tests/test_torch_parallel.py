@@ -12,7 +12,20 @@ debug-size full RoMa (112^2), both float32:
   here none);
 - the running statistics: the variances within 1e-5 relative, the means
   within 1e-5 of their channels' standard deviation (`stat_error`);
-- both ranks bit-equal to each other (parameters, statistics, metrics).
+- both ranks bit-equal to each other (parameters, statistics, metrics);
+- for Tiny RoMa, every ConvBlock's ReLU input on the same side of 0 in both
+  runs (`relu_sign_flips`).
+
+"tiny_tied" is the same Tiny RoMa with flax's initialisation drawn straight
+after PyTorch's default draw (`build_model` re-seeds in between). There one
+ReLU input of XFeat's block5.0, a BatchNorm over 32 values a channel, lies
+within float32 rounding of 0 and falls on the other side on two ranks
+(ROADMAP C9), as does one of the fine matcher's first block: the loss
+terms agree within LOSS_RTOL, but that pixel's
+gradient passes on one side only and moves XFeat's gradients and
+`grad_norm`. The test holds that the flip is within the layer's rounding
+and holds everything the tie does not reach as for "tiny";
+TINY_TIED_KINK_SENSITIVE names the gradients it reaches.
 
 And a resume: each rank's own state after a step, saved and reloaded
 (`CheckPoint`: AdamW's step counts on the host), then `replicate`d: every
@@ -44,11 +57,15 @@ if ROOT not in sys.path:
 
 from roma_torch.config import TinyRomaConfig, TrainConfig  # noqa: E402
 from roma_torch.losses.robust_loss import robust_loss, tiny_robust_loss  # noqa: E402
+from roma_torch.models import layers  # noqa: E402
+from roma_torch.models.layers import ConvBlock, flax_init_  # noqa: E402
+from roma_torch.models.tiny_roma import TinyRoma  # noqa: E402
 from roma_torch.models.zoo import build_model, debug_roma_config  # noqa: E402
 from roma_torch.parallel import mesh as pmesh  # noqa: E402
 from roma_torch.train import train as ttrain  # noqa: E402
 from roma_torch.train.grad_parity import (  # noqa: E402
-    DATA_PARALLEL_KINK_SENSITIVE, GRAD_TOL, KINK_SENSITIVE, grad_mismatches)
+    DATA_PARALLEL_KINK_SENSITIVE, GRAD_TOL, KINK_SENSITIVE, TINY_TIED_KINK_SENSITIVE,
+    grad_mismatches)
 
 GLOBAL_BATCH = 4
 LOSS_RTOL = 1e-5
@@ -95,8 +112,14 @@ def depth_batch(rng, b: int, h: int, w: int, shift_px: int) -> dict:
 def build(model_name: str):
     """(state, loss_fn, global batch): the same on every process."""
     cfg = TrainConfig(batch_size=GLOBAL_BATCH)
-    if model_name == "tiny":
-        model = build_model(TinyRomaConfig(match_dim=32, fine_match_dim=16, dtype="float32"), 0)
+    if model_name.startswith("tiny"):
+        tiny_cfg = TinyRomaConfig(match_dim=32, fine_match_dim=16, dtype="float32")
+        if model_name == "tiny":
+            model = build_model(tiny_cfg, 0)
+        else:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)
+                model = flax_init_(TinyRoma(tiny_cfg))
         state = ttrain.make_tiny_train_state(cfg, model=model, device="cpu")
         batch = depth_batch(np.random.default_rng(1), GLOBAL_BATCH, 64, 64, 8)
         return state, tiny_robust_loss, batch
@@ -108,9 +131,58 @@ def build(model_name: str):
     return state, robust_loss, batch
 
 
+class ReluInputs:
+    """Within, every Tiny RoMa ConvBlock's training BatchNorm output (its
+    ReLU input) is kept in `self.values`, in call order, with the block's
+    name."""
+
+    def __init__(self, model):
+        self.model, self.values, self.name = model, [], None
+
+    def __enter__(self):
+        self.hooks = [m.register_forward_pre_hook(lambda m, _, n=n: setattr(self, "name", n))
+                      for n, m in self.model.named_modules() if isinstance(m, ConvBlock)]
+        self.orig = layers.batch_norm_train
+
+        def keep(*args):
+            y = self.orig(*args)
+            self.values.append((self.name, y.detach().clone()))
+            return y
+
+        layers.batch_norm_train = keep
+        return self
+
+    def __exit__(self, *exc):
+        layers.batch_norm_train = self.orig
+        for h in self.hooks:
+            h.remove()
+
+
+def relu_sign_flips(ranks: list[dict], ref: dict) -> dict[str, tuple[int, float, float]]:
+    """ConvBlock name -> (ReLU inputs on the other side of 0 in the ranks'
+    run than in the one-process run, the largest |value| among them, the
+    largest difference of the block's values between the runs), for every
+    block with a flip. XFeat runs on [A; B]: a rank's rows are its own A
+    rows then its B rows."""
+    out = {}
+    for i, (name, y) in enumerate(ref["relu_inputs"]):
+        parts = [r["relu_inputs"][i][1] for r in ranks]
+        if name.startswith("xfeat"):
+            h = [len(p) // 2 for p in parts]
+            got = torch.cat([p[:k] for p, k in zip(parts, h)] + [p[k:] for p, k in zip(parts, h)])
+        else:
+            got = torch.cat(parts)
+        flips = (got > 0) != (y > 0)
+        if flips.any():
+            out[name] = (int(flips.sum()), float(torch.minimum(got.abs(), y.abs())[flips].max()),
+                         float((got - y).abs().max()))
+    return out
+
+
 def run(model_name: str, mesh=None, images_moved_seed=None) -> dict:
     """One step; the gradients before the clip (the clip's scale undone),
-    the statistics, parameters after the step and the metrics."""
+    the statistics, parameters after the step and the metrics (Tiny RoMa:
+    and its ConvBlocks' ReLU inputs)."""
     state, loss_fn, batch = build(model_name)
     if images_moved_seed is not None:
         r = np.random.default_rng(100 + images_moved_seed)
@@ -118,17 +190,22 @@ def run(model_name: str, mesh=None, images_moved_seed=None) -> dict:
             batch[k] = (batch[k] + 1e-7 * r.standard_normal(batch[k].shape)).astype(np.float32)
     state = pmesh.replicate(state, mesh)
     local = batch if mesh is None else pmesh.shard_batch(batch, mesh)
-    state, metrics = ttrain.make_train_step(loss_fn, mesh=mesh)(state, local)
+    with ReluInputs(state.model) as relu_inputs:
+        state, metrics = ttrain.make_train_step(loss_fn, mesh=mesh)(state, local)
     clip = state.cfg.grad_clip
     scale = max(float(metrics["grad_norm"]), clip) / clip
     model = state.model
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "grads": {n: p.grad * scale for n, p in model.named_parameters() if p.grad is not None},
             "state": {k: v.clone() for k, v in model.state_dict().items()},
-            "step": state.step}
+            "step": state.step, "relu_inputs": relu_inputs.values}
 
 
-NAMED = {"tiny": {}, "roma": {**KINK_SENSITIVE, **DATA_PARALLEL_KINK_SENSITIVE}}
+NAMED = {"tiny": {}, "tiny_tied": TINY_TIED_KINK_SENSITIVE,
+         "roma": {**KINK_SENSITIVE, **DATA_PARALLEL_KINK_SENSITIVE}}
+# "tiny_tied": the blocks with a tied ReLU input, and the metrics they reach
+TIED_BLOCKS = {"xfeat.0.block5.0", "fine_matcher.0"}
+TIED_METRICS = {"grad_norm"}
 
 
 def _optimizer_tensors(state) -> dict:
@@ -206,7 +283,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.mark.parametrize("model_name", ["tiny", "roma"])
+@pytest.mark.parametrize("model_name", ["tiny", "tiny_tied", "roma"])
 def test_two_gloo_ranks_match_one_process(tmp_path, model_name):
     import concurrent.futures
 
@@ -223,14 +300,26 @@ def test_two_gloo_ranks_match_one_process(tmp_path, model_name):
 
     # against one process on the whole batch
     assert set(r0["metrics"]) == set(ref["metrics"])
-    if model_name == "tiny":
+    tied = set()
+    if model_name.startswith("tiny"):
         assert ref["metrics"]["corr_volume_loss_8"] > 0
+        flips = relu_sign_flips(ranks, ref)
+        if model_name == "tiny_tied":
+            # one ReLU input a tied block within its rounding of 0, nowhere else
+            assert set(flips) == TIED_BLOCKS, flips
+            assert all(n == 1 and margin <= rounding for n, margin, rounding in flips.values())
+            tied = TIED_METRICS
+        else:
+            assert not flips, flips
     for k, v in ref["metrics"].items():
+        if k in tied:
+            continue
         assert abs(r0["metrics"][k] - v) <= LOSS_RTOL * abs(v), (k, r0["metrics"][k], v)
     state, _, _ = build(model_name)
     bad, worst = grad_mismatches(state.model, r0["grads"], ref["grads"], NAMED[model_name])
     assert not bad, bad[:10]
-    assert worst["n_tol"] > 20
+    # the tied draw names 19 of its tensors; the rest stay held to GRAD_TOL
+    assert worst["n_tol"] > (10 if model_name == "tiny_tied" else 20)
     stats = [k for k in ref["state"] if k.endswith(("running_mean", "running_var"))]
     assert len(stats) > 20
     for k in stats:
@@ -298,7 +387,7 @@ def print_readings():
     import tempfile
 
     out = {}
-    for model_name in ("tiny", "roma"):
+    for model_name in ("tiny", "tiny_tied", "roma"):
         base = one_process(model_name)["grads"]
         with tempfile.TemporaryDirectory() as d:
             dp = _readings(two_ranks(model_name, __import__("pathlib").Path(d))[0]["grads"], base)
@@ -310,7 +399,8 @@ def print_readings():
                 env[n] = tuple(max(a, b) for a, b in zip(env.get(n, (0.0, 0.0)), v))
         model = build(model_name)[0].model
         out[model_name] = {n: {"two_ranks": dp[n], "envelope": env[n]} for n in base
-                           if max(dp[n][0], env[n][0]) > GRAD_TOL and n not in KINK_SENSITIVE
+                           if max(dp[n][0], env[n][0]) > GRAD_TOL
+                           and (model_name != "roma" or n not in KINK_SENSITIVE)
                            and not feeds_batch_norm(model, n)}
     print(json.dumps(out, indent=1))
 

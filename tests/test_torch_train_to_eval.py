@@ -8,6 +8,7 @@ pixel (`test_rendered_world_is_the_jax_tests`, not slow); the exact warps
 between its cameras drive the harness engine to AUC@5 > 0.9."""
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -15,6 +16,44 @@ import torch
 
 import chip_smoke as cs
 import test_train_to_eval as jax_t2e
+
+# ROADMAP C10: the full-RoMa tensor groups whose default init is not JAX's
+C10_GROUPS = {
+    "encoder.cnn.layers.*.weight",
+    "encoder.cnn.layers.*.bias",
+    "encoder.dinov2.patch_embed.proj.weight",
+    "encoder.dinov2.patch_embed.proj.bias",
+    "encoder.dinov2.blocks.*.attn.qkv.weight",
+    "encoder.dinov2.blocks.*.attn.qkv.bias",
+    "encoder.dinov2.blocks.*.attn.proj.weight",
+    "encoder.dinov2.blocks.*.attn.proj.bias",
+    "encoder.dinov2.blocks.*.mlp.fc1.weight",
+    "encoder.dinov2.blocks.*.mlp.fc1.bias",
+    "encoder.dinov2.blocks.*.mlp.fc2.weight",
+    "encoder.dinov2.blocks.*.mlp.fc2.bias",
+    "decoder.embedding_decoder.blocks.*.attn.qkv.weight",
+    "decoder.embedding_decoder.blocks.*.attn.proj.weight",
+    "decoder.embedding_decoder.blocks.*.attn.proj.bias",
+    "decoder.embedding_decoder.blocks.*.mlp.fc1.weight",
+    "decoder.embedding_decoder.blocks.*.mlp.fc1.bias",
+    "decoder.embedding_decoder.blocks.*.mlp.fc2.weight",
+    "decoder.embedding_decoder.blocks.*.mlp.fc2.bias",
+    "decoder.embedding_decoder.to_out.weight",
+    "decoder.embedding_decoder.to_out.bias",
+    "decoder.gps.*.pos_conv.weight",
+    "decoder.gps.*.pos_conv.bias",
+    "decoder.proj.*.0.weight",
+    "decoder.proj.*.0.bias",
+    "decoder.conv_refiner.*.disp_emb.bias",
+    "decoder.conv_refiner.*.block1.*.weight",
+    "decoder.conv_refiner.*.block1.*.bias",
+    "decoder.conv_refiner.*.hidden_blocks.*.0.weight",
+    "decoder.conv_refiner.*.hidden_blocks.*.0.bias",
+    "decoder.conv_refiner.*.hidden_blocks.*.3.weight",
+    "decoder.conv_refiner.*.hidden_blocks.*.3.bias",
+    "decoder.conv_refiner.*.out_conv.bias",
+    "decoder.conv_refiner.*.out_conv.weight",
+}
 
 
 def test_rendered_world_is_the_jax_tests(tmp_path):
@@ -80,16 +119,20 @@ def test_sync_gate_counts_only_the_harness_main_thread():
 
 
 def test_flax_conv_init_is_the_jax_packages():
-    """C9: `flax_conv_init_`, from which train -> eval starts Tiny RoMa,
-    draws the convolutions as flax's `nn.Conv` default draws JAX's
-    TinyRoma: weights of variance 1 / fan_in truncated at two standard
-    deviations of the untruncated normal, zero biases. Standard deviations
-    within 5% on every tensor of at least 4096 weights, on both sides."""
+    """C9: `build_model`'s default initialisation of Tiny RoMa is the JAX
+    package's (flax's `nn.Conv` default, through `layers.flax_init_`), per
+    tensor: exact zeros where JAX's init has zeros (biases, running means),
+    exact ones where it has ones (running variances), and every weight
+    drawn from a normal of variance 1 / fan_in truncated at two standard
+    deviations of the untruncated normal: no value beyond the truncation,
+    and the standard deviation within sampling error (five standard errors)
+    of the nominal on both sides and of the JAX draw's. The weights are
+    `flax_init_`'s draw after the seed, whatever the constructor drew
+    before it."""
     import jax
     import jax.numpy as jnp
 
     from roma_torch.config import TinyRomaConfig
-    from roma_torch.models.layers import flax_conv_init_
     from roma_torch.models.port import tiny_state_dict_from_jax
     from roma_torch.models.zoo import build_model
     from roma_tpu.config import TinyRomaConfig as JaxTinyRomaConfig
@@ -99,18 +142,101 @@ def test_flax_conv_init_is_the_jax_packages():
     x = jnp.zeros((1, 64, 64, 3))
     variables = JaxTinyRoma(JaxTinyRomaConfig(**kw)).init(jax.random.PRNGKey(0), x, x, train=False)
     ref = tiny_state_dict_from_jax(jax.tree_util.tree_map(np.array, dict(variables)))
-    torch.manual_seed(0)
-    got = flax_conv_init_(build_model(TinyRomaConfig(**kw), seed=0)).state_dict()
+    got = build_model(TinyRomaConfig(**kw), seed=0).state_dict()
     assert set(got) == set(ref)
+    n_weights = 0
     for k, r in ref.items():
-        for w in (got[k], r):
-            if k.endswith("bias"):
-                assert not w.any(), k
-            elif w.ndim == 4:
-                nominal = (1.0 / w[0].numel()) ** 0.5
+        g = got[k]
+        assert g.shape == r.shape and g.dtype == r.dtype, k
+        if not r.is_floating_point():
+            continue
+        if not r.any():
+            assert not g.any(), k
+        elif bool((r == 1).all()):
+            assert bool((g == 1).all()), k
+        else:
+            assert r.ndim == 4 and k.endswith("weight"), k
+            n = r.numel()
+            nominal = (1.0 / r[0].numel()) ** 0.5
+            se = 5 * (1 / (2 * n)) ** 0.5
+            for w in (g, r):
                 assert w.abs().max() <= 2 * nominal / 0.87962566103423978 * (1 + 1e-6), k
-                if w.numel() >= 4096:
-                    assert abs(float(w.std()) / nominal - 1) < 0.05, k
+                assert abs(float(w.std()) / nominal - 1) < se, k
+            assert abs(float(g.std()) - float(r.std())) / nominal < 5 * (1 / n) ** 0.5, k
+            n_weights += 1
+    assert n_weights == sum(k.endswith("weight") and v.ndim == 4 for k, v in ref.items()) > 20
+
+    from roma_torch.models.layers import flax_init_
+    from roma_torch.models.tiny_roma import TinyRoma
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(123)  # another construction draw
+        other = TinyRoma(TinyRomaConfig(**kw))
+        torch.manual_seed(0)
+        other = flax_init_(other).state_dict()
+    assert all(torch.equal(other[k], got[k]) for k in got), "the init depends on construction"
+
+
+def init_table(got: dict, ref: dict) -> dict:
+    """Per tensor of two freshly initialised state dicts (the port's `got`,
+    JAX's `ref`, same names): "zeros", "ones" or the ratio of the port's
+    standard deviation to JAX's where they differ by more than sampling
+    error (five standard errors); tensors that agree are left out. Names
+    are grouped with their layer indices as "*"."""
+    import re
+
+    rows: dict = {}
+    for k, r in ref.items():
+        g = got[k]
+        if not r.is_floating_point():
+            continue
+        kind = lambda t: "zeros" if not t.any() else "ones" if bool((t == 1).all()) else "random"  # noqa: E731
+        kg, kr = kind(g), kind(r)
+        if kg == kr == "random":
+            ratio = float(g.float().std() / r.float().std())
+            if abs(ratio - 1) <= 5 * (1 / r.numel()) ** 0.5 + 5 * (1 / (2 * r.numel())) ** 0.5:
+                continue
+            entry = "std"
+        elif kg == kr:
+            continue
+        else:
+            ratio, entry = None, f"{kg} (JAX {kr})"
+        group = rows.setdefault(re.sub(r"\.\d+\.", ".*.", k), {})
+        group.setdefault(entry, []).append(ratio)
+    return {k: "; ".join(e if e != "std" else
+                         f"std x{min(r):.3g}-{max(r):.3g} of JAX's ({len(r)} tensors)"
+                         for e, r in v.items()) for k, v in rows.items()}
+
+
+def full_roma_init_table() -> dict:
+    """ROADMAP C10: the debug-size full RoMa's `build_model` init against
+    the JAX package's `RomaMatcher.init` (same topology as the published
+    model, shallow)."""
+    import dataclasses
+
+    import jax
+
+    from roma_torch.models.port import state_dict_from_jax
+    from roma_torch.models.zoo import build_model, debug_roma_config
+    from roma_tpu.models.matcher import RomaMatcher as JaxRomaMatcher
+    from roma_tpu.models.zoo import debug_roma_config as jax_debug_config
+
+    jm = JaxRomaMatcher.init(jax.random.PRNGKey(0),
+                             dataclasses.replace(jax_debug_config(), dtype="float32"))
+    ref = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jm.params))
+    got = build_model(dataclasses.replace(debug_roma_config(), dtype="float32"), 0).state_dict()
+    assert set(got) == set(ref)
+    return init_table(got, ref)
+
+
+def test_full_roma_init_differs_as_c10_records():
+    """C10 (open): full RoMa keeps PyTorch's module defaults, which differ
+    from the JAX package's initialisers in these tensor groups (ROADMAP
+    C10's table, printed by `PYTHONPATH=. python
+    tests/test_torch_train_to_eval.py init-table`); Tiny RoMa's default
+    differs in none (C9)."""
+    table = full_roma_init_table()
+    assert set(table) == C10_GROUPS, sorted(set(table) ^ C10_GROUPS)
 
 
 @pytest.mark.slow
@@ -120,3 +246,9 @@ def test_trained_tiny_reaches_auc_through_the_ports_harness(tmp_path):
     cs.check_train_to_eval(res)  # raises SmokeFailure below the JAX test's gates
     assert res["auc"]["auc_5"] > 0.5
     assert res["auc"]["auc_5"] > res["auc_init"]["auc_5"] + 0.3
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["init-table"]:
+    import json
+
+    print(json.dumps(full_roma_init_table(), indent=1))
