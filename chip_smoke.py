@@ -96,7 +96,18 @@
    train -> eval: Tiny RoMa trained 600 steps on the 96x128 world of
    tests/test_train_to_eval.py from `build_model`'s default init (the JAX
    package's) reaches AUC@5 > 0.5 and > untrained + 0.3 through the
-   port's harness;
+   port's harness; then the tail (run_tail, on the same matcher): Tiny
+   RoMa with fused_kernel=True exported by torch.export at 1 x 480x640
+   with the weights as its first input, saved, loaded and run (K7 once a
+   call, nothing else, bit-equal to eager); profiling.roofline of the
+   default match() (FLOPs with K1-K4 counted through their roma::
+   operators' formulas, each formula against FlopCounterMode over the
+   operator's plain version at every signature the match gives it; bytes,
+   TFLOP/s, tensor-core share; launches K1 5, K2 18, K3 29, K4 63 a
+   match), pairs/s and the profiled device busy ms; the four demos on a
+   rendered 480x640 pair through their main(); ResNet-50 float32 GPU vs
+   CPU at every level (1e-4 of max|CPU|) and its bf16 shapes at 560^2;
+   grid_sample_nearest GPU vs CPU on half-pixel ties, bit-equal;
 14. SfM (run_sfm): the JAX study's bundle adjustment at its full sizes
    (experiments/sfm_scale.py's worlds and pose-graph init from the same
    seeds: 100 cams / 10k pts / 249,574 obs dense, 1k cams / 100k pts /
@@ -136,10 +147,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-PEAK_EXPS = 3.9e12         # H100 SXM5 exponentials a second (special-function units;
-                           # the FlashAttention-3 paper's figure)
 PAIRS = 2                  # pairs per match(); symmetric -> 4 images per pass
 TINY_PAIRS = 8             # pairs per Tiny RoMa match()
 TINY_HW = (480, 640)       # RESOLUTION_PRESETS["tiny_bench"]
@@ -260,7 +267,14 @@ def median(xs: list[float]) -> float:
 def bound(bytes_moved: float, flops: float, exps: float = 0.0) -> tuple[float, str]:
     """Least ms for the work: the bytes over the memory rate, or the
     operations (tensor-core products, or exponentials on the
-    special-function units, whichever takes longer) over their peak."""
+    special-function units, whichever takes longer) over their peak
+    (`roma_torch.utils.profiling`'s H100 SXM peaks). The products are each
+    kernel's FLOP formula (`flops` in its module, its operator's formula for
+    FlopCounterMode) where that is what the run's data needs: K1 counts
+    the corners in range, which depend on the flow, and K6 the bilinear
+    arithmetic that FlopCounterMode does not count."""
+    from roma_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_EXPS
+
     tb = bytes_moved / PEAK_BYTES * 1e3
     to = max(flops / PEAK_BF16_FLOPS * 1e3, exps / PEAK_EXPS * 1e3)
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -447,6 +461,7 @@ def check_dw_chain(dev, gen, cfg, params):
 
     from roma_torch.kernels import dw_affine_relu as k4
     from roma_torch.kernels import dw_chain
+    from roma_torch.utils.profiling import PEAK_BYTES
 
     failures = []
 
@@ -516,7 +531,7 @@ def check_dw_chain(dev, gen, cfg, params):
     for label, h, x, one, chain in cases:
         n_pix = B * h * h
         weights = N * (25 * C * 2 + C * C * 2 + 3 * C * 4)
-        flops = N * n_pix * (25 * C * 2 + C * C * 2 + 4 * C)
+        flops = dw_chain.flops(*(tuple(t.shape) for t in (x, *params)))
         b_ms, b_by = bound(2 * n_pix * C * 2 + weights, flops)
         ms_rounds = graph_ms_rounds(lambda: dw_chain.chain_nchw(x, *params), 5)
         lib_rounds = graph_ms_rounds(lambda: k4_cudnn(x), 5)
@@ -603,7 +618,8 @@ def check_dw_affine_relu(dev, gen, cfg):
         err, diff = compare(x, w, sc, sh, label)
         wc = w.permute(2, 0, 1)[:, None].contiguous()
         n = B * C * h * h
-        b_ms, b_by = bound(2 * n * 2 + 25 * C * 2 + 2 * C * 4, 53.0 * n)
+        b_ms, b_by = bound(2 * n * 2 + 25 * C * 2 + 2 * C * 4,
+                           k4.flops(x.shape, w.shape, sc.shape, sh.shape))
         ms_rounds = graph_ms_rounds(lambda: k4.dw5x5_affine_relu_nchw(x, w, sc, sh), 20)
         rows.append(dict(shape=label, dims=[B, C, h, h], calls=calls, max_abs_err=err,
                          differing_share=diff, tol="2^-7 |plain| + 1e-5",
@@ -655,7 +671,7 @@ def check_dw_block_mm(dev, gen):
         m4, b4 = m.T[:, :, None, None].contiguous(), bias.to(torch.bfloat16)
         n_pix = B * h * h
         b_ms, b_by = bound(2 * n_pix * C * 2 + 25 * C * 2 + C * C * 2 + 3 * C * 4,
-                           n_pix * (50.0 * C + 2.0 * C * C + 4 * C))
+                           k5.flops(*(tuple(t.shape) for t in args)))
         rows.append(dict(shape=label, dims=[B, C, h, h], calls=1, max_abs_err=err, tol=tol,
                          ragged_max_abs_err=ragged,
                          ms=cuda_ms(lambda: k5.dw5x5_affine_relu_mm_nchw(*args), 20),
@@ -719,7 +735,7 @@ def check_flash_attn(dev, gen, cfg):
     rows = []
     for label, n, H, d, calls, q, k, v, err in inputs:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        flops = 4.0 * B * H * n * n * d
+        flops = at.flops(q.shape, k.shape, v.shape)
         nbytes = 4 * B * n * H * d * 2
         b_ms, b_by = bound(nbytes, flops, float(B * H * n * n))
         ms_rounds = cuda_ms_rounds(lambda: at.attention(q, k, v), 20)
@@ -799,7 +815,7 @@ def check_corr_softmax(dev, gen):
         lib = F.scaled_dot_product_attention(q, k, v)[:, 0, :, :2]
         torch.cuda.synchronize()
         nbytes = 2.0 * 2 * B * L * C + 4.0 * (2 * L + 2 * B * L)
-        b_ms, b_by = bound(nbytes, 2.0 * B * L * L * C, float(B * L * L))
+        b_ms, b_by = bound(nbytes, cs.flops(f0.shape, f1.shape, grid.shape), float(B * L * L))
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb), 5)
         rows.append(dict(shape=label, dims=[B, L, L, C], calls=calls,
@@ -3196,6 +3212,251 @@ def t2e_sweep(seeds: int = 5, inits: tuple[str, ...] = ("flax", "torch")) -> lis
     return rows
 
 
+# ---------------------------------------------------------------- the tail (A14)
+
+TAIL_DEMO_FRAMES = 4
+
+
+def check_export(dev, card: str) -> dict:
+    """Tiny RoMa with fused_kernel=True (bf16) exported on the card at
+    1 x 480x640 through `export_tiny_roma` (weights as the first input),
+    saved to bytes and loaded back in this process: each call of the loaded
+    program launches K7 once and nothing else, and its four outputs equal
+    the eager model's (the same kernel on the same inputs) bit for bit."""
+    import torch
+
+    from roma_torch.config import TinyRomaConfig
+    from roma_torch.export import export_tiny_roma, load_exported
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.models.zoo import build_model
+
+    cfg = TinyRomaConfig(fused_kernel=True)
+    model = build_model(cfg, SEED).to(dev).eval()
+    params = dict(model.state_dict())
+    t0 = time.perf_counter()
+    res = export_tiny_roma(params, hw=TINY_HW, cfg=cfg)
+    export_s = time.perf_counter() - t0
+    run = load_exported(res.serialized)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a, b = (torch.rand((1, *TINY_HW, 3), generator=g, device=dev) for _ in range(2))
+    with torch.no_grad():
+        ref = model(a, b)
+        run(params, a, b)  # a first call
+        calls = []
+        for _ in range(2):
+            reset_launches()
+            out = run(params, a, b)
+            torch.cuda.synchronize()
+            calls.append(dict(LAUNCHES))
+    ref = (ref[8]["flow"], ref[8]["certainty"], ref[4]["flow"], ref[4]["certainty"])
+    equal = [bool(torch.equal(o, r)) for o, r in zip(out, ref)]
+    out = dict(bytes=len(res.serialized), flops=res.flops, bytes_accessed=res.bytes_accessed,
+               peak_memory=res.peak_memory, export_s=export_s, launches=calls,
+               bit_equal_eager=equal)
+    print(f"[{card}] tail: exported Tiny RoMa (fused_kernel, bf16, 1 x {TINY_HW}): "
+          f"{out['bytes']} bytes, {res.flops / 1e9:.4f} GFLOP, "
+          f"{res.bytes_accessed / 1e9:.4f} GB accessed, peak "
+          f"{'not measured' if res.peak_memory is None else f'{res.peak_memory / 1e6:.1f} MB'}, "
+          f"exported in {export_s:.1f} s; launches a call {calls}; bit-equal to eager "
+          f"{equal}", flush=True)
+    for c in calls:
+        fail_if(c != dict({k: 0 for k in c}, corr_softmax=1),
+                f"tail export: a call of the loaded program launched {c}, not K7 once")
+    fail_if(not all(equal), f"tail export: outputs differ from the eager kernel path {equal}")
+    return out
+
+
+class CaptureOps:
+    """Within, the first call of each ``roma::`` operator at each argument
+    signature (shapes, dtypes, other arguments) is kept: (op, args)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        calls = self.calls = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace == "roma":
+                    key = (func.name(), *(
+                        (tuple(a.shape), str(a.dtype)) if hasattr(a, "shape") else a
+                        for a in args))
+                    calls.setdefault(key, (func, args))
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def check_op_flops(matcher, a, b, card: str) -> list[dict]:
+    """Each ``roma::`` operator that one default match() calls, at each
+    argument signature it is called with: its FLOP formula against
+    FlopCounterMode over the operator's plain version on the same CUDA
+    inputs. They must be equal."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode, flop_registry
+
+    from roma_torch.kernels import PLAIN
+
+    with CaptureOps() as cap:
+        matcher.match(a, b, batched=True)
+    rows = []
+    for key, (func, args) in cap.calls.items():
+        with FlopCounterMode(display=False) as fc, torch.inference_mode():
+            PLAIN[func.name().split("::")[1]](*args)
+        formula = flop_registry[func._overloadpacket](*args, out_val=None)
+        rows.append(dict(op=func.name(), shapes=[list(x[0]) if isinstance(x, tuple) else x
+                                                 for x in key[1:]],
+                         formula=int(formula), flop_counter=int(fc.get_total_flops())))
+    bad = [r for r in rows if r["formula"] != r["flop_counter"]]
+    print(f"[{card}] tail: FLOP formulas against FlopCounterMode on the plain versions, "
+          f"{len(rows)} signatures of one match(): "
+          + "; ".join(f"{r['op']} {r['shapes'][0]} {r['formula']}" for r in rows), flush=True)
+    fail_if(not rows, "tail: no roma:: operator captured in match()")
+    fail_if(bool(bad), f"tail: FLOP formulas differ from FlopCounterMode: {bad}")
+    return rows
+
+
+def run_tail(matcher, dev, gen, card: str) -> dict:
+    """The tail (A14) on the card: the export with K7 (`check_export`);
+    `profiling.roofline` of the default match() on 2 pairs (FLOPs with K1-K4
+    counted through their operators' formulas, bytes, TFLOP/s, tensor-core
+    share), launches per match K1 5, K2 18, K3 29, K4 63, each operator's
+    FLOP formula against FlopCounterMode (`check_op_flops`), pairs/s and
+    the profiled device busy ms; the four demos on a rendered 480x640 pair
+    (demo_match, demo_match_tiny, demo_fundamental, demo_3D_effect with
+    TAIL_DEMO_FRAMES frames), full RoMa through this run's matcher, each
+    writing its files, a full-RoMa demo's match launching as match() does;
+    ResNet-50 in float32 at 1 x 224^2 on the card against the same weights
+    on the CPU at every level (1e-4 x max|CPU|), and in bf16 at 1 x 560^2
+    for the shapes; `grid_sample_nearest` on the card against the CPU on a
+    grid of exact half-pixel ties and random points, bit-equal."""
+    import numpy as np
+    import torch
+
+    from roma_torch.demo import demo_3D_effect, demo_fundamental, demo_match, demo_match_tiny
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.models.layers import flax_init_
+    from roma_torch.models.resnet import ResNet50
+    from roma_torch.ops.grid_sample import grid_sample_nearest
+    from roma_torch.utils import profiling
+
+    t_start = time.perf_counter()
+    res: dict = {"export": check_export(dev, card)}
+
+    h, w = matcher.cfg.coarse_resolution
+    a, b = (torch.rand((PAIRS, h, w, 3), generator=gen, device=dev) for _ in range(2))
+    match = lambda x, y: matcher.match(x, y, batched=True)  # noqa: E731
+    reset_launches()
+    roof = profiling.roofline(match, a, b, iters=3)
+    # roofline runs match 1 + 3 + 1 times (warm-up, timed, counted)
+    launches = {k: v // 5 for k, v in LAUNCHES.items()}
+    expected = expected_launches(matcher.cfg)
+    res["roofline"] = dict(seconds=roof.seconds, flops=roof.flops,
+                           bytes_accessed=roof.bytes_accessed, tflops=roof.achieved_tflops,
+                           tensor_core_share=roof.tensor_core_utilization,
+                           hbm_share=roof.hbm_utilization, report=roof.report(),
+                           launches_per_match=launches)
+    print(f"[{card}] tail: roofline of match() on 2 pairs: {roof.report()}; "
+          f"{roof.flops / 1e12:.4f} TFLOP, {roof.bytes_accessed / 1e9:.3f} GB accessed; "
+          f"launches a match {launches}", flush=True)
+    fail_if(any(LAUNCHES[k] != 5 * n for k, n in expected.items()),
+            f"tail: launches over 5 matches {dict(LAUNCHES)}, expected 5 x {expected}")
+    res["op_flops"] = check_op_flops(matcher, a, b, card)
+    times = [timed_match(matcher, a, b)[2] for _ in range(5)]
+    res["match_s"] = times
+    res["pairs_per_s"] = PAIRS / min(times)
+    res["device_busy_ms"] = profiled_device_ms(lambda: match(a, b), 3)
+    print(f"[{card}] tail: match() {', '.join(f'{t:.4f}' for t in times)} s, best "
+          f"{res['pairs_per_s']:.3f} pairs/s; device busy {res['device_busy_ms']:.2f} ms a "
+          "match (profiled)", flush=True)
+
+    # the demos on a rendered pair, full RoMa through this run's matcher
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        world = write_two_plane_scene(root, (0, 1), ((480, 640), (480, 640)))
+        pa, pb = (str(root / p) for p in world["paths"])
+        pair = ["--im_A_path", pa, "--im_B_path", pb, "--device", str(dev)]
+        saved = [m.roma_outdoor for m in (demo_match, demo_fundamental, demo_3D_effect)]
+        for m in (demo_match, demo_fundamental, demo_3D_effect):
+            m.roma_outdoor = lambda device=None: matcher
+        demos = {}
+        try:
+            for name, fn, extra, files in (
+                    ("demo_match", demo_match.main, ["--save_path", f"{tmp}/w.jpg"], ["w.jpg"]),
+                    ("demo_match_tiny", demo_match_tiny.main, ["--save_path", f"{tmp}/t.jpg"],
+                     ["t.jpg"]),
+                    ("demo_fundamental", demo_fundamental.main, [], []),
+                    ("demo_3D_effect", demo_3D_effect.main,
+                     ["--save_path", f"{tmp}/gif/f", "--frames", str(TAIL_DEMO_FRAMES)],
+                     [f"gif/f_{i:03d}.jpg" for i in range(TAIL_DEMO_FRAMES)])):
+                reset_launches()
+                t0 = time.perf_counter()
+                out = fn(pair + extra)
+                torch.cuda.synchronize()
+                demos[name] = row = dict(s=time.perf_counter() - t0, launches=dict(LAUNCHES))
+                fail_if(not all((root / f).exists() for f in files), f"tail {name}: no {files}")
+                if name == "demo_fundamental":
+                    fail_if(out is None or tuple(np.shape(out.model)) != (3, 3)
+                            or not np.isfinite(out.model).all(), f"tail {name}: F {out}")
+                    row["F"] = np.asarray(out.model).tolist()
+                    row["inlier_share"] = float(np.mean(out.inliers))
+                if name != "demo_match_tiny":
+                    fail_if(any(row["launches"][k] != n for k, n in expected.items()),
+                            f"tail {name}: launches {row['launches']}, expected {expected}")
+        finally:
+            for m, f in zip((demo_match, demo_fundamental, demo_3D_effect), saved):
+                m.roma_outdoor = f
+    res["demos"] = demos
+    print(f"[{card}] tail: demos on a rendered 480x640 pair: " + json.dumps(demos), flush=True)
+
+    # ResNet-50: float32 on the card against the CPU, then bf16 shapes
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        net = flax_init_(ResNet50(dtype=torch.float32))
+    x = torch.rand((1, 3, 224, 224), generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        ref = net(x)
+        got = net.to(dev)(x.to(dev))
+        errs = {s: ((got[s].cpu() - ref[s]).abs().max() / ref[s].abs().max()).item()
+                for s in ref}
+        net.dtype = torch.bfloat16
+        big = net(torch.rand((1, 3, 560, 560), generator=gen, device=dev))
+    shapes = {s: list(t.shape) for s, t in big.items()}
+    res["resnet50"] = dict(float32_err_over_max=errs, bf16_shapes=shapes)
+    print(f"[{card}] tail: ResNet-50 float32 1x224^2 GPU vs CPU |d|/max|CPU| per level "
+          f"{errs}; bf16 1x560^2 shapes {shapes}", flush=True)
+    fail_if(any(not e <= 1e-4 for e in errs.values()), f"tail ResNet-50: {errs}")
+    fail_if(shapes != {1: [1, 3, 560, 560], 2: [1, 64, 280, 280], 4: [1, 256, 140, 140],
+                       8: [1, 512, 70, 70], 16: [1, 1024, 35, 35], 32: [1, 2048, 18, 18]},
+            f"tail ResNet-50 bf16 shapes {shapes}")
+
+    # nearest sampling: half-pixel ties (pixel coordinates k + 0.5) and random points
+    g = torch.Generator().manual_seed(SEED)
+    feat = torch.randn((2, 6, 8, 5), generator=g).to(torch.bfloat16)
+    ties = torch.stack(torch.meshgrid(torch.arange(-1, 9) * 0.25 - 1.0,
+                                      torch.arange(-1, 7) / 3.0 - 1.0, indexing="xy"), -1)
+    pts = torch.rand((2, 40, 2), generator=g) * 2.4 - 1.2
+    near = {}
+    for name, grid in (("ties", ties[None].expand(2, -1, -1, -1)), ("points", pts)):
+        for pad in ("zeros", "border"):
+            ref = grid_sample_nearest(feat, grid, pad)
+            got = grid_sample_nearest(feat.to(dev), grid.to(dev), pad).cpu()
+            near[f"{name} {pad}"] = bool(torch.equal(got, ref))
+    res["grid_sample_nearest_bit_equal"] = near
+    print(f"[{card}] tail: grid_sample_nearest GPU vs CPU bit-equal {near}", flush=True)
+    fail_if(not all(near.values()), f"tail grid_sample_nearest: {near}")
+    res["tail_s"] = time.perf_counter() - t_start
+    print(f"[{card}] tail phase took {res['tail_s']:.1f} s", flush=True)
+    return res
+
+
 def expected_launches(cfg) -> dict:
     """Launches of one default full-RoMa match()."""
     return {
@@ -3399,6 +3660,7 @@ def main() -> int:
         print(f"[{card}] profile: {json.dumps(report['profile'])}", flush=True)
     report["match_raw"] = run_match_raw(matcher, card)
     report["eval"] = run_eval(matcher, card, out_dir if args.profile else None)
+    report["tail"] = run_tail(matcher, dev, gen, card)
     del matcher
     torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):

@@ -142,6 +142,13 @@ def ransac(
 
 
 def adaptive_num_iters(inlier_ratio: float, sample_size: int, confidence: float) -> int:
+    """Draws for `confidence` of one all-inlier sample, as the JAX package
+    counts them; where eps**sample_size is below float64's resolution at 1
+    (an inlier ratio under ~0.5% for 7-point samples) no finite count is
+    enough, and the JAX formula divides by a zero log (ROADMAP C13): the
+    count is then unbounded (the caller's `max_iters` stops the loop)."""
     eps = max(inlier_ratio, 1e-3)
     denom = np.log(max(1 - eps**sample_size, 1e-12))
+    if denom == 0.0:
+        return np.iinfo(np.int64).max
     return int(np.ceil(np.log(1 - confidence) / denom))

@@ -13,10 +13,12 @@ wgmma, FlashAttention-3-shaped, with the logits kept on the SM; the
 float32 forward and backward are simple float32-FMA tiles of 64 rows,
 ``csrc/attn_simple.cuh``).
 
-`attention` is the entry: CPU tensors take the plain version (autograd
-differentiates it); on CUDA tensors a forward that autograd records goes
-through `FlashAttention`, which saves q, k, v, o and the rows'
-log-sum-exp and runs K8 and K9 in backward.
+`attention` is the entry: a forward that autograd does not record goes
+through the operator ``roma::flash_attn`` (the plain version for CPU
+tensors, the kernel for CUDA tensors); one that autograd records takes the
+plain version on CPU tensors (autograd differentiates it) and
+`FlashAttention` on CUDA tensors, which saves q, k, v, o and the rows'
+log-sum-exp (``roma::flash_attn_lse``) and runs K8 and K9 in backward.
 """
 
 from __future__ import annotations
@@ -35,21 +37,32 @@ FWD_ENTRIES = {torch.bfloat16: "roma_flash_attn", torch.float32: "roma_flash_att
 BWD_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
+def _scaled_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q k^T / sqrt(d), (B, H, N, M), float32 (float64 for float64 inputs)."""
+    d, ct = q.shape[-1], runtime.compute_dtype(q)
+    return torch.einsum("bnhd,bmhd->bhnm", q.to(ct), k.to(ct)) / math.sqrt(d)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v written out, float32 arithmetic (float64
     for float64 inputs), output in q's dtype. (B,N,H,d) in and out."""
-    d, ct = q.shape[-1], runtime.compute_dtype(q)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(ct), k.to(ct)) / math.sqrt(d)
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhnm,bmhd->bnhd", p, v.to(ct)).to(q.dtype)
+    p = torch.softmax(_scaled_logits(q, k), dim=-1)
+    return torch.einsum("bhnm,bmhd->bnhd", p, v.to(p.dtype)).to(q.dtype)
 
 
 def attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Each row's log-sum-exp of the scaled logits, (B, H, N), float32
     (float64 for float64 inputs): the residual the forward saves."""
-    d, ct = q.shape[-1], runtime.compute_dtype(q)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(ct), k.to(ct)) / math.sqrt(d)
-    return torch.logsumexp(logits, dim=-1)
+    return torch.logsumexp(_scaled_logits(q, k), dim=-1)
+
+
+def attention_with_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """`attention_plain`'s output and `attention_lse_plain`'s residual from
+    one set of logits (the forward kernel's two outputs)."""
+    logits = _scaled_logits(q, k)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhnm,bmhd->bnhd", p, v.to(p.dtype)).to(q.dtype)
+    return out, torch.logsumexp(logits, dim=-1)
 
 
 def attention_di(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -79,24 +92,36 @@ def attention_bwd_plain(q, k, v, o, lse, dout):
     return dq, dk, dv
 
 
+def flops(q, k, v, out_shape=None) -> int:
+    """FlopCounterMode's own attention formula, from the (B, N, H, d)
+    shapes: q k^T and P v, 2 B H N M d each."""
+    from torch.utils.flop_counter import sdpa_flop_count
+
+    bhnd = lambda s: (s[0], s[2], s[1], s[3])  # noqa: E731
+    return sdpa_flop_count(bhnd(q), bhnd(k), bhnd(v))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """CPU tensors take the plain version; CUDA tensors launch the forward
-    kernel, through `FlashAttention` (backward: K8 and K9) when autograd
-    records it."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
+    """Where autograd records: CPU tensors take the plain version (autograd
+    differentiates it), CUDA tensors `FlashAttention` (the forward kernel;
+    backward K8 and K9). Elsewhere the operator ``roma::flash_attn``: the
+    plain version for CPU tensors, the forward kernel for CUDA tensors."""
     if runtime.grad_needed(q, k, v):
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v)
         return FlashAttention.apply(q, k, v)
-    return attention_cuda(q, k, v)[0]
+    return op(q, k, v)
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward kernel with its log-sum-exp residual; backward by the
-    dK/dV kernel (K8) and the dQ kernel (K9)."""
+    """The forward kernel with its log-sum-exp residual (the operator
+    ``roma::flash_attn_lse``); backward by the dK/dV kernel (K8) and the dQ
+    kernel (K9), which stay outside the dispatcher: no training step is
+    exported or counted, in the JAX package either."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out, lse = attention_cuda(q, k, v, with_lse=True)
+        out, lse = op_lse(q, k, v)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -143,6 +168,27 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             runtime.stream_handle(q))
     runtime.check(lib, NAME, rc)
     return out, lse
+
+
+def _out_like(q):
+    B, N, H, d = q.shape
+    return q.new_empty((B, N, H, d))
+
+
+def _lse_like(q):
+    B, N, H, _ = q.shape
+    return q.new_empty((B, H, N), dtype=torch.float32)
+
+
+op = runtime.define_op(
+    NAME, "(Tensor q, Tensor k, Tensor v) -> Tensor",
+    lambda q, k, v: attention_cuda(q, k, v)[0], attention_plain,
+    lambda q, k, v: _out_like(q), flops)
+op_lse = runtime.define_op(
+    "flash_attn_lse", "(Tensor q, Tensor k, Tensor v) -> (Tensor, Tensor)",
+    lambda q, k, v: attention_cuda(q, k, v, with_lse=True),
+    attention_with_lse_plain,
+    lambda q, k, v: (_out_like(q), _lse_like(q)), flops)
 
 
 def _bwd_fn(symbol: str, n_out: int):

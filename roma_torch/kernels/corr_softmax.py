@@ -31,12 +31,20 @@ def fused_pos_embed_plain(f0: torch.Tensor, f1: torch.Tensor,
     return torch.softmax(cv, dim=-1) @ grid.float()
 
 
+def flops(f0, f1, grid, out_shape=None) -> int:
+    """What FlopCounterMode counts for the plain version, from the shapes:
+    the scores, 2 B L0 L1 C, and the product with the grid, 2 B L0 L1 2."""
+    B, L0, C = f0
+    L1 = f1[1]
+    return 2 * B * L0 * L1 * C + 2 * B * L0 * L1 * grid[1]
+
+
 def fused_pos_embed(f0: torch.Tensor, f1: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel's
-    entry for their dtype (bf16 or float32)."""
-    if f0.device.type == "cpu":
-        return fused_pos_embed_plain(f0, f1, grid)
-    return fused_pos_embed_cuda(f0, f1, grid)
+    """The operator ``roma::corr_softmax``: CPU tensors take the plain
+    version; CUDA tensors launch the kernel's entry for their dtype (bf16
+    or float32). It has no backward: its callers take the plain version
+    where autograd records."""
+    return op(f0, f1, grid)
 
 
 # features' dtype -> the kernel's C entry
@@ -66,3 +74,10 @@ def fused_pos_embed_cuda(f0: torch.Tensor, f1: torch.Tensor, grid: torch.Tensor)
             scale_log2, runtime.stream_handle(f0))
     runtime.check(lib, NAME, rc)
     return out
+
+
+op = runtime.define_op(
+    NAME, "(Tensor f0, Tensor f1, Tensor grid) -> Tensor", fused_pos_embed_cuda,
+    fused_pos_embed_plain,
+    lambda f0, f1, grid: f0.new_empty((f0.shape[0], f0.shape[1], 2), dtype=torch.float32),
+    flops)

@@ -114,13 +114,19 @@ def dw5x5_affine_relu_plain_nchw(x, w, scale, shift):
     return torch.relu(y).to(x.dtype)
 
 
+def flops(x, w, scale, shift, out_shape=None) -> int:
+    """What FlopCounterMode counts for the plain version, from the shapes:
+    the depthwise convolution, 2 B C H W k^2 (the affine and the ReLU are
+    elementwise)."""
+    B, C, H, W = x
+    return 2 * B * C * H * W * w[0] * w[1]
+
+
 def dw5x5_affine_relu_nchw(x, w, scale, shift):
-    """The block on (B,C,H,W); CPU tensors take the plain version, CUDA
-    tensors launch the kernel, differentiable through the plain version."""
-    if x.device.type == "cpu":
-        return dw5x5_affine_relu_plain_nchw(x, w, scale, shift)
-    return runtime.with_plain_backward(dw5x5_affine_relu_cuda_nchw, dw5x5_affine_relu_plain_nchw,
-                                       x, w, scale, shift)
+    """The block on (B,C,H,W) through the operator ``roma::dw_affine_relu``
+    (CPU tensors take the plain version, CUDA tensors launch the kernel),
+    differentiable through the plain version."""
+    return runtime.with_plain_backward(op, dw5x5_affine_relu_plain_nchw, x, w, scale, shift)
 
 
 def dw5x5_affine_relu_cuda_nchw(x, w, scale, shift):
@@ -142,6 +148,13 @@ def dw5x5_affine_relu_cuda_nchw(x, w, scale, shift):
             runtime.stream_handle(x))
     runtime.check(lib, NAME, rc)
     return y
+
+
+op = runtime.define_op(
+    NAME, "(Tensor x, Tensor w, Tensor scale, Tensor shift) -> Tensor",
+    dw5x5_affine_relu_cuda_nchw, dw5x5_affine_relu_plain_nchw,
+    lambda x, w, scale, shift: torch.empty_like(x, memory_format=torch.contiguous_format),
+    flops)
 
 
 def dw5x5_affine_relu(x, w, scale, shift, data_format: str = "NHWC"):

@@ -28,6 +28,7 @@ import torch
 
 from roma_torch.kernels import runtime
 from roma_torch.kernels.dw_chain import block_plain_nchw, padded_channels
+from roma_torch.kernels.dw_chain import block_flops as flops  # one block's
 
 NAME = "dw_block_mm"
 MAX_CHANNELS = 160
@@ -73,12 +74,10 @@ def tile_plan(B: int, C: int, H: int, W: int) -> TilePlan:
 
 def dw5x5_affine_relu_mm_nchw(x, w, scale, shift, m, bias):
     """The block on (B,C,H,W) -> (B,C,H,W); w (5,5,C), m (C,C) with
-    z[d] = sum_c m[c, d] y[c]. CPU tensors take the plain version, CUDA
-    tensors launch the kernel, differentiable through the plain version."""
-    if x.device.type == "cpu":
-        return block_plain_nchw(x, w, scale, shift, m, bias)
-    return runtime.with_plain_backward(dw5x5_affine_relu_mm_cuda_nchw, block_plain_nchw,
-                                       x, w, scale, shift, m, bias)
+    z[d] = sum_c m[c, d] y[c]. Through the operator ``roma::dw_block_mm``
+    (CPU tensors take the plain version, CUDA tensors launch the kernel),
+    differentiable through the plain version."""
+    return runtime.with_plain_backward(op, block_plain_nchw, x, w, scale, shift, m, bias)
 
 
 @functools.cache
@@ -110,6 +109,14 @@ def dw5x5_affine_relu_mm_cuda_nchw(x, w, scale, shift, m, bias):
     rc = fn(*args, runtime.stream_handle(x))
     runtime.check(lib, NAME, rc)
     return z
+
+
+op = runtime.define_op(
+    NAME, "(Tensor x, Tensor w, Tensor scale, Tensor shift, Tensor m, Tensor bias) -> Tensor",
+    dw5x5_affine_relu_mm_cuda_nchw, block_plain_nchw,
+    lambda x, w, scale, shift, m, bias: torch.empty_like(
+        x, memory_format=torch.contiguous_format),
+    flops)
 
 
 def dw5x5_affine_relu_mm(x, w, scale, shift, m, bias):

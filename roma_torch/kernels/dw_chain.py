@@ -109,12 +109,25 @@ def chain_plain_nchw(x, ws, scales, shifts, ms, biases):
     return x
 
 
+def block_flops(x, w, scale, shift, m, bias, out_shape=None) -> int:
+    """What FlopCounterMode counts for one block's plain version, from the
+    shapes: the depthwise convolution, 2 B C H W 25, and the 1x1 mix,
+    2 B H W C D (the affine, the ReLU and the bias are elementwise)."""
+    B, C, H, W = x
+    return 2 * B * C * H * W * w[0] * w[1] + 2 * B * H * W * m[0] * m[1]
+
+
+def flops(x, ws, scales, shifts, ms, biases, out_shape=None) -> int:
+    """`block_flops` for each of the chain's N blocks."""
+    return ws[0] * block_flops(x, ws[1:], None, None, ms[1:], None)
+
+
 def chain_nchw(x, ws, scales, shifts, ms, biases):
-    """N chained blocks on (B,C,H,W); CPU tensors take the plain version,
-    CUDA tensors launch the kernel once per block."""
-    if x.device.type == "cpu":
-        return chain_plain_nchw(x, ws, scales, shifts, ms, biases)
-    return chain_cuda_nchw(x, ws, scales, shifts, ms, biases)
+    """N chained blocks on (B,C,H,W) through the operator ``roma::dw_chain``:
+    CPU tensors take the plain version, CUDA tensors launch the kernel once
+    per block. It has no backward (the refiner's gate keeps autograd off
+    it)."""
+    return op(x, ws, scales, shifts, ms, biases)
 
 
 @functools.cache
@@ -179,6 +192,14 @@ def _chain_cuda_f32(symbol, x, ws, scales, shifts, ms, biases):
         runtime.check(lib, NAME, rc)
         src = dst
     return src
+
+
+op = runtime.define_op(
+    NAME, "(Tensor x, Tensor ws, Tensor scales, Tensor shifts, Tensor ms, Tensor biases) -> Tensor",
+    chain_cuda_nchw, chain_plain_nchw,
+    lambda x, ws, scales, shifts, ms, biases: torch.empty_like(
+        x, memory_format=torch.contiguous_format),
+    flops)
 
 
 def dw5x5_mm_chain(x, ws, scales, shifts, ms, biases):

@@ -86,15 +86,22 @@ def tile_plan(flow: torch.Tensor, radius: int, dtype: torch.dtype = torch.bfloat
     return TilePlan(corners, union, shared)
 
 
+def flops(f0, f1, radius, flow, out_shape=None) -> int:
+    """What FlopCounterMode counts for the plain version, from the shapes:
+    a dot of C for every (2r+2)^2 corner of every pixel, 2 B H W (2r+2)^2 C
+    (out-of-range corners included; the bilinear combine is elementwise)."""
+    B, H, W, C = f0
+    return 2 * B * H * W * (2 * radius + 2) ** 2 * C
+
+
 def local_correlation(
     f0: torch.Tensor, f1: torch.Tensor, radius: int, flow: torch.Tensor
 ) -> torch.Tensor:
-    """(B,H,W,C) bf16 or float32 x2 + flow (B,H,W,2) -> (B,H,W,(2r+1)^2)
-    float32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel's entry for their dtype."""
-    if f0.device.type == "cpu":
-        return local_correlation_plain(f0, f1, radius, flow)
-    return local_correlation_cuda(f0, f1, radius, flow)
+    """The operator ``roma::local_corr``: (B,H,W,C) bf16 or float32 x2 +
+    flow (B,H,W,2) -> (B,H,W,(2r+1)^2) float32. CPU tensors take the plain
+    version; CUDA tensors launch the kernel's entry for their dtype. It has
+    no backward (`use_kernel` keeps autograd off it)."""
+    return op(f0, f1, radius, flow)
 
 
 def local_correlation_cuda(
@@ -140,3 +147,11 @@ def local_correlation_cuda(
     rc = fn(*ptrs, B, H, W, C, radius, scale, runtime.stream_handle(f0))
     runtime.check(lib, NAME, rc)
     return out
+
+
+op = runtime.define_op(
+    NAME, "(Tensor f0, Tensor f1, int radius, Tensor flow) -> Tensor",
+    local_correlation_cuda, local_correlation_plain,
+    lambda f0, f1, radius, flow: f0.new_empty((*f0.shape[:3], (2 * radius + 1) ** 2),
+                                              dtype=torch.float32),
+    flops)

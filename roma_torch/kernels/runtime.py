@@ -18,6 +18,18 @@ and the correlation softmax then give way to their plain versions, as the
 JAX package routes them only when not training), and `PlainBackward`
 differentiates the depthwise blocks through their plain versions, as the
 JAX package's custom_vjp's do.
+
+Each forward kernel is a PyTorch operator in the ``roma::`` namespace
+(`define_op`): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, its fake implementation gives the
+output's shape and dtype without touching data, and its FLOP formula counts
+what `torch.utils.flop_counter.FlopCounterMode` counts for the plain version
+(2 per multiply-add of its matrix products and convolutions). So
+`torch.export` and `FlopCounterMode` see a launch as one op, as `jax.export`
+and XLA's cost analysis see a `pallas_call`. A wrapper calls the operator
+wherever autograd does not record the call; the operator has no autograd
+formula (a backward through it raises), and no implementation for any other
+device: a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -175,6 +187,28 @@ def compute_dtype(t: torch.Tensor) -> torch.dtype:
     """The plain versions' arithmetic type for `t`: float32, or float64 for
     float64 inputs (as gradcheck uses)."""
     return torch.promote_types(t.dtype, torch.float32)
+
+
+def define_op(name: str, schema: str, cuda, plain, fake, flops):
+    """Register ``roma::<name>`` with `schema` (its arguments and results,
+    as `torch.library` writes them): `cuda` for CUDA tensors (the kernel's
+    launch), `plain` for CPU tensors, `fake` for fake and meta tensors,
+    and `flops` (the argument tensors' shapes and the other arguments, as
+    `register_flop_formula` passes them) as its FLOP formula. Every output
+    is a new contiguous tensor, as the kernels write them (the plain
+    versions' outputs are made so). Returns the operator."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    def cpu(*args):
+        out = plain(*args)
+        return tuple(t.contiguous() for t in out) if isinstance(out, tuple) else out.contiguous()
+
+    op = torch.library.custom_op(f"roma::{name}", cuda, mutates_args=(), device_types="cuda",
+                                 schema=schema)
+    op.register_kernel("cpu")(cpu)
+    op.register_fake(fake)
+    register_flop_formula(getattr(torch.ops.roma, name))(flops)
+    return op
 
 
 class PlainBackward(torch.autograd.Function):

@@ -103,32 +103,68 @@ def grid_sample_smooth_nchw(feat: torch.Tensor, grid: torch.Tensor, mode: str = 
     """grid_sample (zeros padding) of feat (B,C,H,W) at grid (B,Ho,Wo,2) ->
     (B,C,Ho,Wo) in feat's dtype, through the windowed gather per `mode`.
     `with_ok=True` also returns the whole-batch `ok` flag (a () bool tensor).
-    CPU tensors take the plain versions; CUDA tensors launch the kernel once
-    (C <= 16, or `with_ok`) and never wait for it."""
+    Through the operator ``roma::windowed_sample``: CPU tensors take the
+    plain versions; CUDA tensors launch the kernel once (C <= 16, or
+    `with_ok`) and never wait for it. It has no backward (the refiner's
+    gate keeps autograd off it)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    out, ok = op(feat, grid, mode == "exact", with_ok)
+    return (out, ok) if with_ok else out
+
+
+def smooth_plain(feat, grid, exact: bool, with_ok: bool):
+    """The operator's CPU implementation: the plain versions of both modes
+    (plain `grid_sample` past 16 channels); `ok` empty unless `with_ok`."""
     narrow = feat.shape[1] <= MAX_CHANNELS
-    if feat.device.type == "cpu":
-        vhw = tuple(grid.shape[1:3])
-        gp = pad_grid(grid.float())
-        p = plan(feat, gp, vhw) if narrow or with_ok else None
-        if not narrow:
-            out = grid_sample_nchw(feat, grid)
-        elif mode == "fast":
-            out = windowed_sample_plain(feat, gp, vhw, p)
-        else:
-            out = windowed_exact_plain(feat, gp, vhw, p)
-        return (out, p.ok) if with_ok else out
+    vhw = tuple(grid.shape[1:3])
+    gp = pad_grid(grid.float())
+    p = plan(feat, gp, vhw) if narrow or with_ok else None
+    if not narrow:
+        out = grid_sample_nchw(feat, grid)
+    elif exact:
+        out = windowed_exact_plain(feat, gp, vhw, p)
+    else:
+        out = windowed_sample_plain(feat, gp, vhw, p)
+    return out, (p.ok.clone() if with_ok else _no_ok(feat))
+
+
+def _smooth_cuda(feat, grid, exact: bool, with_ok: bool):
+    """The operator's CUDA implementation: the kernel on a channels-last
+    copy of a narrow map, plain `grid_sample` past 16 channels (the kernel
+    then reduces only `ok`, when asked for it)."""
     grid = grid.float().contiguous()
     ok = torch.ones((), dtype=torch.int32, device=feat.device) if with_ok else None
-    if narrow:
+    if feat.shape[1] <= MAX_CHANNELS:
         feat = feat.contiguous(memory_format=torch.channels_last)
-        out = windowed_sample_cuda(feat, grid, mode == "exact", ok)
+        out = windowed_sample_cuda(feat, grid, exact, ok)
     else:
-        out = grid_sample_nchw(feat, grid)
+        out = grid_sample_nchw(feat, grid).contiguous()
         if with_ok:
             windowed_sample_cuda(None, grid, ok=ok, hw=tuple(feat.shape[-2:]))
-    return (out, ok.bool()) if with_ok else out
+    return out, (ok.bool() if with_ok else _no_ok(feat))
+
+
+def _no_ok(feat):
+    return torch.empty((0,), dtype=torch.bool, device=feat.device)
+
+
+def _smooth_fake(feat, grid, exact: bool, with_ok: bool):
+    B, C = feat.shape[:2]
+    out = feat.new_empty((B, C, *grid.shape[1:3]))
+    return out, feat.new_empty(() if with_ok else (0,), dtype=torch.bool)
+
+
+def flops(feat, grid, exact, with_ok, out_shape=None) -> int:
+    """What FlopCounterMode counts for the plain version: 0 (bilinear
+    taps are gathers and elementwise products, as `F.grid_sample` counts
+    0 there)."""
+    return 0
+
+
+op = runtime.define_op(
+    NAME, "(Tensor feat, Tensor grid, bool exact, bool with_ok) -> (Tensor, Tensor)",
+    _smooth_cuda, smooth_plain, _smooth_fake, flops)
 
 
 def grid_sample_smooth(feat: torch.Tensor, grid: torch.Tensor, mode: str = "exact",

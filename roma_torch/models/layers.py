@@ -134,9 +134,10 @@ def flax_init_(module: nn.Module) -> nn.Module:
     and ``nn.Dense`` defaults initialise the JAX package's layers: weights
     from ``lecun_normal`` (a normal truncated at two standard deviations,
     scaled to variance 1 / fan_in) and zero biases, drawn from the global
-    torch generator. `build_model` applies it to Tiny RoMa (ROADMAP C9:
-    from PyTorch's default, kaiming-uniform with a = sqrt(5), variance
-    1 / (3 fan_in) and uniform biases, Tiny RoMa trains more slowly)."""
+    torch generator. `build_model` applies it to every model (ROADMAP C9,
+    C10: PyTorch's default, kaiming-uniform with a = sqrt(5), variance
+    1 / (3 fan_in) and uniform biases, is not the JAX package's, and Tiny
+    RoMa trains more slowly from it)."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             std = math.sqrt(1.0 / m.weight[0].numel()) / TRUNC_NORMAL_STD

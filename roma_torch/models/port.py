@@ -186,3 +186,26 @@ def load_reference_tiny(model: torch.nn.Module, state: Mapping[str, Any]) -> lis
     picked = {k: torch.as_tensor(np.asarray(v)) for k, v in picked.items() if k in own}
     missing, _ = model.load_state_dict(picked, strict=False)
     return missing
+
+
+def resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX `ResNet50` variables ({"params", "batch_stats"}, numpy leaves)
+    -> this package's `ResNet50` state_dict (torchvision's key names):
+    ``conv1``/``bn1``, and ``layer{i}_{j}``'s ``conv1..3``, ``bn1..3``,
+    ``proj`` and ``bn_proj`` as ``layer{i}.{j}.conv1..3``, ``bn1..3``,
+    ``downsample.0`` and ``downsample.1``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    w = _Writer()
+    w.conv("conv1", params["conv1"])
+    w.batchnorm("bn1", params["bn1"], stats["bn1"])
+    for name, p in params.items():
+        if not name.startswith("layer"):
+            continue
+        key = name.replace("_", ".")
+        for i in (1, 2, 3):
+            w.conv(f"{key}.conv{i}", p[f"conv{i}"])
+            w.batchnorm(f"{key}.bn{i}", p[f"bn{i}"], stats[name][f"bn{i}"])
+        if "proj" in p:
+            w.conv(f"{key}.downsample.0", p["proj"])
+            w.batchnorm(f"{key}.downsample.1", p["bn_proj"], stats[name]["bn_proj"])
+    return w.sd

@@ -30,8 +30,9 @@ gates require `not train`):
 - with `smooth_warp` set (RomaConfig.smooth_warp_gather), the warp of a map
   with <= 16 channels (the scale-1 refiner's 9) goes through the windowed
   warp-gather kernel in "fast" or "exact" mode, as in the JAX package.
-The kernel wrappers take their plain versions for CPU tensors; the
-wide-channel depthwise kernel differentiates through its plain version.
+The kernel wrappers call their ``roma::`` operators (the plain versions
+for CPU tensors); the wide-channel depthwise kernel differentiates through
+its plain version.
 
 Features are NCHW inside; flows are (B, H, W, 2) as in the JAX package.
 """

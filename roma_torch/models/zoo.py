@@ -14,17 +14,18 @@ from roma_torch.models.tiny_roma import TinyRoma, TinyRomaMatcher
 
 
 def build_model(cfg: RomaConfig | TinyRomaConfig, seed: int = 0) -> RomaModel | TinyRoma:
-    """The model of `cfg`, built on the CPU inside `fork_rng` from `seed`.
-    Tiny RoMa starts from the JAX package's initialisation: its weights are
-    `flax_init_`'s draw (flax's default for every convolution and dense
-    layer) right after `manual_seed(seed)`, whatever the constructor drew
-    before it, so they depend on the seed and the modules' order only.
-    Full RoMa keeps PyTorch's module defaults (ROADMAP C10)."""
+    """The model of `cfg`, built on the CPU inside `fork_rng` from `seed`,
+    from the JAX package's initialisation: every convolution and linear
+    layer (depthwise convolutions too, fan-in 25) is `flax_init_`'s draw
+    (flax's `nn.Conv` / `nn.Dense` default: truncated lecun_normal weights,
+    zero biases) right after `manual_seed(seed)`, whatever the constructor
+    drew before it, so those weights depend on the seed and the modules'
+    order only. What the constructor draws itself stays as drawn: DINOv2's
+    tokens (normal 1e-6 / 0.02, as the JAX package's), the norms and the
+    BatchNorm statistics."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        if not isinstance(cfg, TinyRomaConfig):
-            return RomaModel(cfg)
-        model = TinyRoma(cfg)
+        model = TinyRoma(cfg) if isinstance(cfg, TinyRomaConfig) else RomaModel(cfg)
         torch.manual_seed(seed)
         return flax_init_(model)
 

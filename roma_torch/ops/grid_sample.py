@@ -1,4 +1,5 @@
-"""Bilinear sampling of channels-last feature maps at normalized coordinates.
+"""Bilinear and nearest sampling of channels-last feature maps at normalized
+coordinates.
 
 Same contract as the JAX package's `ops/grid_sample.py::grid_sample`:
 features ``(B, H, W, C)``, grid ``(B, ..., 2)`` of ``(x, y)`` in [-1, 1],
@@ -37,3 +38,29 @@ def grid_sample(
     g = grid.reshape(B, -1, 1, 2)
     out = grid_sample_nchw(feat.permute(0, 3, 1, 2), g, padding_mode)
     return out[..., 0].permute(0, 2, 1).reshape(B, *batch_shape, feat.shape[-1])
+
+
+def grid_sample_nearest(
+    feat: torch.Tensor, grid: torch.Tensor, padding_mode: str = "zeros"
+) -> torch.Tensor:
+    """Nearest-neighbour sample `feat` (B,H,W,C) at `grid` (B,...,2) ->
+    (B,...,C) in feat's dtype: the pixel ``floor(px + 0.5)`` of the
+    align_corners=False coordinate ``px = (x + 1) * W / 2 - 0.5``, a half-pixel
+    tie going up, as the JAX package's function rounds (``F.grid_sample``'s
+    nearest mode rounds ties to even), read clamped to the map and zeroed
+    outside it under "zeros" padding."""
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unsupported padding_mode: {padding_mode}")
+    B, H, W, C = feat.shape
+    batch_shape = grid.shape[1:-1]
+    g = grid.reshape(B, -1, 2).float()
+    px = (g[..., 0] + 1.0) * (W / 2) - 0.5
+    py = (g[..., 1] + 1.0) * (H / 2) - 0.5
+    xi = torch.floor(px + 0.5).long()
+    yi = torch.floor(py + 0.5).long()
+    idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+    out = torch.gather(feat.reshape(B, H * W, C), 1, idx[..., None].expand(-1, -1, C))
+    if padding_mode == "zeros":
+        valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        out = out * valid[..., None].to(out.dtype)
+    return out.reshape(B, *batch_shape, C)

@@ -64,13 +64,15 @@ def local_correlation(
     # one zero pixel around f1: every clamped corner index lands on it
     f1p = F.pad(f1, (0, 0, 1, 1, 1, 1))
     bidx = torch.arange(B, device=f0.device)[:, None, None]
-    g = torch.empty((B, H, W, K2, K2), dtype=torch.float32, device=f0.device)
+    # a row of 2r+2 corners at a time, their dots one batched matrix
+    # product a pixel (as FlopCounterMode counts the kernel: 2 (2r+2)^2 C)
+    xi = torch.stack([(x0i - r + dx).clamp(-1, W) + 1 for dx in range(K2)], -1)
+    rows = []
     for dy in range(K2):
         yi = (y0i - r + dy).clamp(-1, H) + 1
-        for dx in range(K2):
-            xi = (x0i - r + dx).clamp(-1, W) + 1
-            vals = f1p[bidx, yi, xi].float()
-            g[..., dy, dx] = (f0s * vals).sum(-1)
+        vals = f1p[bidx[..., None], yi[..., None], xi].float()  # (B, H, W, 2r+2, C)
+        rows.append(torch.matmul(vals, f0s[..., None])[..., 0])
+    g = torch.stack(rows, -2)
     wx = wx[..., None, None]
     wy = wy[..., None, None]
     w00 = (1 - wy) * (1 - wx)

@@ -8,7 +8,10 @@ all:
 
 - every gradient within GRAD_TOL * max|g| of its tensor;
 - a conv bias whose conv feeds a training BatchNorm has an exact gradient
-  of 0 (the BatchNorm removes any shift): both sides below ZERO_GRAD_TOL;
+  of 0 (the BatchNorm removes any shift): both sides below ZERO_GRAD_TOL,
+  or, where the configuration names it, below twice its largest measured
+  |g| (the float32 rounding of the BatchNorm's backward over many pixels,
+  ROADMAP C12);
 - the tensors named for the configuration (KINK_SENSITIVE for the
   debug-size full RoMa; the lists below it for the other configurations),
   within a relative L2 error of twice the largest of their readings.
@@ -52,81 +55,100 @@ ZERO_GRAD_TOL = 1e-6  # a conv bias before a training BatchNorm
 # NVIDIA H100 80GB HBM3, 700 W; the largest of the port's CPU against itself
 # in both configurations, the images moved by 1e-7 with 16 seeds, or on one
 # thread). Named: every tensor that any of these moved by more than
-# GRAD_TOL * max|g|. The bound is twice the largest reading.
+# GRAD_TOL * max|g|. The bound is twice the largest reading. Measured on
+# the debug weights from `build_model`'s default, the JAX package's
+# initialisation since ROADMAP C10 closed (the JAX-vs-port step carries
+# JAX's own init either way); the scale-1 refiner's first BatchNorm weight
+# stays named under C4, though no reading on this build crossed GRAD_TOL.
 KINK_SENSITIVE: dict[str, tuple[float, float, float]] = {
-    "decoder.conv_refiner.1.block1.0.weight": (0.00036, 1.7e-06, 0.0014),
-    "decoder.conv_refiner.1.block1.1.bias": (0.00052, 5.4e-06, 0.0017),
-    "decoder.conv_refiner.1.block1.1.weight": (0.0013, 2.7e-06, 0.001),
-    "decoder.conv_refiner.1.disp_emb.weight": (0.0005, 3.7e-06, 0.0014),
-    "decoder.conv_refiner.1.hidden_blocks.0.0.weight": (0.00078, 7.2e-06, 0.0015),
-    "decoder.conv_refiner.2.block1.0.weight": (0.0019, 7e-06, 0.0055),
-    "decoder.conv_refiner.2.block1.1.bias": (0.0015, 4.9e-06, 0.0048),
-    "decoder.conv_refiner.2.block1.1.weight": (0.0013, 7.2e-06, 0.0044),
-    "decoder.conv_refiner.2.block1.3.weight": (0.0013, 7.6e-06, 0.0037),
-    "decoder.conv_refiner.2.disp_emb.bias": (0.00012, 5.1e-06, 0.0022),
-    "decoder.conv_refiner.2.hidden_blocks.0.0.weight": (0.0017, 7e-06, 0.0042),
-    "decoder.conv_refiner.4.block1.0.weight": (0.0022, 0.0033, 0.0075),
-    "decoder.conv_refiner.4.block1.1.bias": (0.0018, 0.0035, 0.0059),
-    "decoder.conv_refiner.4.block1.1.weight": (0.0018, 0.0032, 0.0062),
-    "decoder.conv_refiner.4.block1.3.bias": (0.00024, 0.0015, 0.0015),
-    "decoder.conv_refiner.4.block1.3.weight": (0.0018, 0.0031, 0.0062),
-    "decoder.conv_refiner.4.disp_emb.bias": (0.00078, 0.0027, 0.0027),
-    "decoder.conv_refiner.4.disp_emb.weight": (0.0022, 0.002, 0.0064),
-    "decoder.conv_refiner.4.hidden_blocks.0.0.weight": (0.0025, 0.003, 0.0067),
-    "decoder.conv_refiner.8.block1.0.weight": (0.00091, 1.9e-05, 0.0012),
-    "decoder.conv_refiner.8.block1.1.bias": (0.00081, 5e-06, 0.0012),
-    "decoder.conv_refiner.8.block1.3.weight": (2.6e-05, 2.2e-05, 0.00046),
-    "decoder.conv_refiner.8.hidden_blocks.0.0.weight": (2.6e-05, 2.2e-05, 0.00061),
-    "decoder.conv_refiner.8.hidden_blocks.0.1.bias": (6e-07, 7.3e-07, 0.0004),
-    "decoder.conv_refiner.16.block1.0.weight": (4.6e-06, 3.5e-06, 0.00026),
-    "decoder.conv_refiner.16.block1.1.bias": (1.8e-06, 1.8e-06, 0.00061),
-    "decoder.proj.1.0.weight": (0.0034, 1.7e-05, 0.01),
-    "decoder.proj.1.1.bias": (0.00017, 3e-06, 0.001),
-    "decoder.proj.1.1.weight": (0.067, 0.0069, 0.021),
-    "decoder.proj.2.0.weight": (0.0028, 6.6e-06, 0.0079),
-    "decoder.proj.2.1.bias": (0.00022, 4.5e-06, 0.0017),
-    "decoder.proj.2.1.weight": (0.07, 0.0051, 0.03),
-    "decoder.proj.4.0.weight": (0.0022, 0.0034, 0.0072),
-    "decoder.proj.4.1.bias": (0.0018, 0.0048, 0.0048),
-    "decoder.proj.4.1.weight": (0.0023, 0.0034, 0.0074),
-    "decoder.proj.8.0.weight": (0.00082, 1.9e-05, 0.0012),
-    "decoder.proj.8.1.bias": (0.00018, 8.8e-06, 0.0012),
-    "encoder.cnn.layers.0.weight": (0.018, 0.011, 0.013),
-    "encoder.cnn.layers.1.bias": (0.022, 0.011, 0.016),
-    "encoder.cnn.layers.1.weight": (0.02, 0.011, 0.013),
-    "encoder.cnn.layers.3.weight": (0.018, 0.01, 0.012),
-    "encoder.cnn.layers.4.bias": (0.024, 0.0094, 0.013),
-    "encoder.cnn.layers.4.weight": (0.017, 0.012, 0.015),
-    "encoder.cnn.layers.7.weight": (0.018, 0.01, 0.012),
-    "encoder.cnn.layers.8.bias": (0.019, 0.01, 0.013),
-    "encoder.cnn.layers.8.weight": (0.018, 0.011, 0.013),
-    "encoder.cnn.layers.10.weight": (0.018, 0.01, 0.012),
-    "encoder.cnn.layers.11.bias": (0.02, 0.009, 0.012),
-    "encoder.cnn.layers.11.weight": (0.02, 0.0083, 0.013),
-    "encoder.cnn.layers.14.weight": (0.018, 0.01, 0.012),
-    "encoder.cnn.layers.15.bias": (0.021, 0.009, 0.013),
-    "encoder.cnn.layers.15.weight": (0.02, 0.0092, 0.012),
-    "encoder.cnn.layers.17.weight": (0.018, 0.01, 0.012),
-    "encoder.cnn.layers.18.bias": (0.019, 0.011, 0.013),
-    "encoder.cnn.layers.18.weight": (0.017, 0.0099, 0.012),
-    "encoder.cnn.layers.20.weight": (0.018, 0.0093, 0.012),
-    "encoder.cnn.layers.21.bias": (0.018, 0.01, 0.012),
-    "encoder.cnn.layers.21.weight": (0.019, 0.011, 0.013),
-    "encoder.cnn.layers.23.weight": (0.018, 0.0094, 0.012),
-    "encoder.cnn.layers.24.bias": (0.022, 0.0016, 0.011),
-    "encoder.cnn.layers.24.weight": (0.019, 0.0017, 0.011),
-    "encoder.cnn.layers.27.weight": (0.019, 0.0017, 0.011),
-    "encoder.cnn.layers.28.bias": (0.02, 0.0022, 0.013),
-    "encoder.cnn.layers.28.weight": (0.019, 0.0014, 0.01),
-    "encoder.cnn.layers.30.weight": (0.018, 0.0013, 0.0096),
-    "encoder.cnn.layers.31.bias": (0.018, 0.0013, 0.0095),
-    "encoder.cnn.layers.31.weight": (0.018, 0.0013, 0.0095),
-    "encoder.cnn.layers.33.weight": (0.018, 0.0013, 0.0096),
-    "encoder.cnn.layers.34.bias": (0.022, 0.0013, 0.01),
-    "encoder.cnn.layers.34.weight": (0.018, 0.00096, 0.0069),
-    "encoder.cnn.layers.36.weight": (0.019, 0.0011, 0.0072),
-    "encoder.cnn.layers.37.bias": (0.032, 0.0016, 0.0091),
-    "encoder.cnn.layers.37.weight": (0.00086, 2e-05, 0.0012),
+    "encoder.cnn.layers.0.weight": (0.018, 0.003, 0.012),
+    "encoder.cnn.layers.1.weight": (0.02, 0.0032, 0.013),
+    "encoder.cnn.layers.1.bias": (0.022, 0.0036, 0.016),
+    "encoder.cnn.layers.3.weight": (0.018, 0.003, 0.012),
+    "encoder.cnn.layers.4.weight": (0.017, 0.0029, 0.017),
+    "encoder.cnn.layers.4.bias": (0.024, 0.0028, 0.013),
+    "encoder.cnn.layers.7.weight": (0.018, 0.0029, 0.012),
+    "encoder.cnn.layers.8.weight": (0.018, 0.0016, 0.012),
+    "encoder.cnn.layers.8.bias": (0.019, 0.0041, 0.013),
+    "encoder.cnn.layers.10.weight": (0.018, 0.0016, 0.012),
+    "encoder.cnn.layers.11.weight": (0.02, 0.0015, 0.013),
+    "encoder.cnn.layers.11.bias": (0.02, 0.0019, 0.012),
+    "encoder.cnn.layers.14.weight": (0.018, 0.0016, 0.012),
+    "encoder.cnn.layers.15.weight": (0.02, 0.0018, 0.012),
+    "encoder.cnn.layers.15.bias": (0.021, 0.0017, 0.013),
+    "encoder.cnn.layers.17.weight": (0.018, 0.0016, 0.012),
+    "encoder.cnn.layers.18.weight": (0.017, 0.0015, 0.011),
+    "encoder.cnn.layers.18.bias": (0.019, 0.0017, 0.012),
+    "encoder.cnn.layers.20.weight": (0.018, 0.0016, 0.012),
+    "encoder.cnn.layers.21.weight": (0.019, 0.0015, 0.013),
+    "encoder.cnn.layers.21.bias": (0.018, 0.0016, 0.012),
+    "encoder.cnn.layers.23.weight": (0.018, 0.0016, 0.012),
+    "encoder.cnn.layers.24.weight": (0.019, 0.00043, 0.011),
+    "encoder.cnn.layers.24.bias": (0.022, 0.0021, 0.011),
+    "encoder.cnn.layers.27.weight": (0.019, 0.005, 0.011),
+    "encoder.cnn.layers.28.weight": (0.019, 0.0048, 0.011),
+    "encoder.cnn.layers.28.bias": (0.02, 0.005, 0.013),
+    "encoder.cnn.layers.30.weight": (0.018, 0.0051, 0.011),
+    "encoder.cnn.layers.31.weight": (0.018, 0.0053, 0.011),
+    "encoder.cnn.layers.31.bias": (0.018, 0.0054, 0.012),
+    "encoder.cnn.layers.33.weight": (0.018, 0.0051, 0.011),
+    "encoder.cnn.layers.34.weight": (0.018, 0.0052, 0.011),
+    "encoder.cnn.layers.34.bias": (0.022, 0.0054, 0.011),
+    "encoder.cnn.layers.36.weight": (0.019, 0.0051, 0.01),
+    "encoder.cnn.layers.37.weight": (0.00086, 0.0041, 0.0056),
+    "encoder.cnn.layers.37.bias": (0.032, 0.0058, 0.015),
+    "decoder.proj.8.0.weight": (0.00082, 0.0044, 0.0056),
+    "decoder.proj.8.1.weight": (3.7e-05, 0.0049, 0.00055),
+    "decoder.proj.8.1.bias": (0.00018, 0.0038, 0.012),
+    "decoder.proj.4.0.weight": (0.0022, 1e-05, 0.0072),
+    "decoder.proj.4.1.weight": (0.0023, 1.3e-05, 0.0074),
+    "decoder.proj.4.1.bias": (0.0018, 1e-05, 0.0029),
+    "decoder.proj.2.0.weight": (0.0028, 0.0037, 0.0079),
+    "decoder.proj.2.1.weight": (0.07, 0.023, 0.03),
+    "decoder.proj.2.1.bias": (0.00022, 0.0011, 0.014),
+    "decoder.proj.1.0.weight": (0.0034, 1.1e-05, 0.01),
+    "decoder.proj.1.1.weight": (0.067, 0.014, 0.033),
+    "decoder.proj.1.1.bias": (0.00017, 1.3e-05, 0.0038),
+    "decoder.conv_refiner.16.disp_emb.bias": (2.3e-06, 1.8e-06, 0.0013),
+    "decoder.conv_refiner.16.block1.0.weight": (4.6e-06, 5.5e-06, 0.0028),
+    "decoder.conv_refiner.16.block1.1.weight": (5.1e-06, 5.9e-06, 0.0023),
+    "decoder.conv_refiner.16.block1.1.bias": (1.8e-06, 2.4e-06, 0.0023),
+    "decoder.conv_refiner.16.block1.3.weight": (5e-06, 5.7e-06, 0.0024),
+    "decoder.conv_refiner.16.block1.3.bias": (1.8e-06, 2.3e-06, 0.00084),
+    "decoder.conv_refiner.16.hidden_blocks.0.0.weight": (5.1e-06, 5.6e-06, 0.0025),
+    "decoder.conv_refiner.16.hidden_blocks.0.1.bias": (6.3e-07, 8.3e-07, 0.0016),
+    "decoder.conv_refiner.8.disp_emb.weight": (1.3e-05, 0.0025, 0.00041),
+    "decoder.conv_refiner.8.disp_emb.bias": (3.7e-06, 0.0049, 0.00018),
+    "decoder.conv_refiner.8.block1.0.weight": (0.00091, 0.0045, 0.0064),
+    "decoder.conv_refiner.8.block1.1.weight": (2.7e-05, 0.0043, 0.00047),
+    "decoder.conv_refiner.8.block1.1.bias": (0.00081, 0.0038, 0.0069),
+    "decoder.conv_refiner.8.block1.3.weight": (2.6e-05, 0.0041, 0.00046),
+    "decoder.conv_refiner.8.block1.3.bias": (5.4e-06, 0.00078, 5.9e-05),
+    "decoder.conv_refiner.8.hidden_blocks.0.0.weight": (2.6e-05, 0.005, 0.00061),
+    "decoder.conv_refiner.8.hidden_blocks.0.1.bias": (6e-07, 0.00028, 0.0004),
+    "decoder.conv_refiner.4.disp_emb.weight": (0.0022, 3.6e-06, 0.0064),
+    "decoder.conv_refiner.4.disp_emb.bias": (0.00078, 5.2e-06, 0.0022),
+    "decoder.conv_refiner.4.block1.0.weight": (0.0022, 1e-05, 0.0075),
+    "decoder.conv_refiner.4.block1.1.weight": (0.0018, 1.2e-05, 0.0062),
+    "decoder.conv_refiner.4.block1.1.bias": (0.0018, 4.1e-06, 0.0059),
+    "decoder.conv_refiner.4.block1.3.weight": (0.0018, 1.2e-05, 0.0062),
+    "decoder.conv_refiner.4.block1.3.bias": (0.00024, 1e-05, 0.0011),
+    "decoder.conv_refiner.4.hidden_blocks.0.0.weight": (0.0025, 1.1e-05, 0.0067),
+    "decoder.conv_refiner.2.disp_emb.weight": (0.00019, 0.00067, 0.0022),
+    "decoder.conv_refiner.2.disp_emb.bias": (0.00012, 0.0018, 0.0059),
+    "decoder.conv_refiner.2.block1.0.weight": (0.0019, 0.0017, 0.0055),
+    "decoder.conv_refiner.2.block1.1.weight": (0.0013, 0.0016, 0.0044),
+    "decoder.conv_refiner.2.block1.1.bias": (0.0015, 0.0029, 0.0048),
+    "decoder.conv_refiner.2.block1.3.weight": (0.0013, 0.0016, 0.0037),
+    "decoder.conv_refiner.2.block1.3.bias": (6e-05, 0.00022, 0.002),
+    "decoder.conv_refiner.2.hidden_blocks.0.0.weight": (0.0017, 0.0015, 0.0042),
+    "decoder.conv_refiner.1.disp_emb.weight": (0.0005, 2.7e-05, 0.0014),
+    "decoder.conv_refiner.1.block1.0.weight": (0.00036, 5e-06, 0.0019),
+    "decoder.conv_refiner.1.block1.1.weight": (0.00056, 5.5e-06, 0.0015),
+    "decoder.conv_refiner.1.block1.1.bias": (0.00052, 4.5e-06, 0.0029),
+    "decoder.conv_refiner.1.block1.3.weight": (0.00034, 1.2e-05, 0.0019),
+    "decoder.conv_refiner.1.block1.3.bias": (0.00016, 5.4e-05, 0.00069),
+    "decoder.conv_refiner.1.hidden_blocks.0.0.weight": (0.00078, 1.1e-05, 0.0025),
 }
 
 # The same rule in the other configurations, readings as relative L2
@@ -134,7 +156,12 @@ KINK_SENSITIVE: dict[str, tuple[float, float, float]] = {
 # tests/test_torch_tiny_train.py (JAX vs the port; the port against itself,
 # as above). DATA_PARALLEL_KINK_SENSITIVE: the debug-size full RoMa at batch
 # 4 of tests/test_torch_parallel.py, beside KINK_SENSITIVE (two gloo ranks
-# vs one process; the port against itself there). Its Tiny RoMa names none;
+# vs one process; the port against itself there): on the JAX package's
+# initialisation no tensor outside KINK_SENSITIVE crosses GRAD_TOL there,
+# but the exact-zero gradients of VGG's first two conv biases (each conv
+# before a training BatchNorm over 4 x 112^2 pixels) read up to 4.8e-6 and
+# 1.1e-6 in float32, past ZERO_GRAD_TOL: named with those |g| readings
+# (ROADMAP C12). Its Tiny RoMa names none;
 # TINY_TIED_KINK_SENSITIVE: that Tiny RoMa with flax's initialisation drawn
 # without `build_model`'s re-seed, where one ReLU input lies within rounding
 # of 0 (ROADMAP C9).
@@ -168,10 +195,8 @@ TINY_TIED_KINK_SENSITIVE: dict[str, tuple[float, ...]] = {
     "fine_matcher.0.layer.0.weight": (0.00085, 0.00085),
 }
 DATA_PARALLEL_KINK_SENSITIVE: dict[str, tuple[float, ...]] = {
-    "decoder.conv_refiner.2.block1.3.bias": (0.00015, 0.0016),
-    "decoder.conv_refiner.2.disp_emb.weight": (0.0019, 0.0024),
-    "decoder.conv_refiner.8.block1.3.bias": (9.6e-05, 0.001),
-    "decoder.proj.8.1.weight": (8.1e-05, 0.012),
+    "encoder.cnn.layers.0.bias": (8.2e-07, 4.8e-06),
+    "encoder.cnn.layers.3.bias": (2.1e-07, 1.1e-06),
 }
 
 
@@ -212,10 +237,11 @@ def grad_mismatches(model: torch.nn.Module, got: dict[str, torch.Tensor],
         r = r.double().cpu()
         if feeds_batch_norm(model, name):
             e = max(g.abs().max().item(), r.abs().max().item())
+            tol = kink_bound(name, named) if name in named else ZERO_GRAD_TOL
             worst["zero_max"] = max(worst["zero_max"], e)
             worst["n_zero"] += 1
-            if e > ZERO_GRAD_TOL:
-                bad.append(f"{name}: |g| {e:.3g} > {ZERO_GRAD_TOL} (exact 0)")
+            if e > tol:
+                bad.append(f"{name}: |g| {e:.3g} > {tol:.3g} (exact 0)")
         elif name in named:
             e = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
             worst["kink_rel_l2_over_bound"] = max(worst["kink_rel_l2_over_bound"],

@@ -25,11 +25,28 @@ def normalized_to_pixel(coords, h: int, w: int):
     )
 
 
+def pixel_to_normalized(coords, h: int, w: int):
+    """Inverse of `normalized_to_pixel`; numpy or torch."""
+    xp = np if isinstance(coords, np.ndarray) else torch
+    return xp.stack((2 * coords[..., 0] / w - 1, 2 * coords[..., 1] / h - 1), -1)
+
+
+def warp_to_pixel_coordinates(warp, h1: int, w1: int, h2: int, w2: int):
+    """Split a (..., 4) warp into pixel-coordinate keypoints in A and B."""
+    return normalized_to_pixel(warp[..., :2], h1, w1), normalized_to_pixel(warp[..., 2:], h2, w2)
+
+
 def _anchor_grid(res: int, device=None) -> torch.Tensor:
     """(res*res, 2) anchor coordinates, row-major over (y, x)."""
     lin = torch.linspace(-1 + 1 / res, 1 - 1 / res, res, device=device)
     gy, gx = torch.meshgrid(lin, lin, indexing="ij")
     return torch.stack([gx, gy], dim=-1).reshape(res * res, 2)
+
+
+def cls_to_flow(cls: torch.Tensor) -> torch.Tensor:
+    """Argmax anchor decoding: (B, H, W, C) logits -> (B, H, W, 2) flow."""
+    res = round(cls.shape[-1] ** 0.5)
+    return _anchor_grid(res, device=cls.device)[torch.argmax(cls, dim=-1)]
 
 
 def cls_to_flow_refine(cls: torch.Tensor) -> torch.Tensor:

@@ -49,7 +49,8 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_or_jax_package():
-    files = sorted((REPO / "roma_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "roma_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                          REPO / "match_ab.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"roma_torch/models/tiny_roma.py", "roma_torch/models/xfeat.py",
@@ -72,7 +73,12 @@ def test_port_imports_no_jax_or_jax_package():
             "roma_torch/sfm/tracks.py", "roma_torch/sfm/pose_graph.py",
             "roma_torch/sfm/metrics.py", "roma_torch/sfm/bundle_adjust.py",
             "roma_torch/sfm/reconstruction.py", "roma_torch/experiments/sfm_reconstruct.py",
-            "roma_torch/experiments/sfm_scale.py", "roma_torch/experiments/sfm_study.py"} <= names
+            "roma_torch/experiments/sfm_scale.py", "roma_torch/experiments/sfm_study.py",
+            "roma_torch/export.py", "roma_torch/utils/profiling.py",
+            "roma_torch/models/resnet.py", "roma_torch/experiments/export_tiny.py",
+            "roma_torch/demo/demo_match.py", "roma_torch/demo/demo_match_tiny.py",
+            "roma_torch/demo/demo_fundamental.py", "roma_torch/demo/demo_3D_effect.py",
+            "match_ab.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]

@@ -65,7 +65,7 @@ from roma_torch.parallel import mesh as pmesh  # noqa: E402
 from roma_torch.train import train as ttrain  # noqa: E402
 from roma_torch.train.grad_parity import (  # noqa: E402
     DATA_PARALLEL_KINK_SENSITIVE, GRAD_TOL, KINK_SENSITIVE, TINY_TIED_KINK_SENSITIVE,
-    grad_mismatches)
+    ZERO_GRAD_TOL, grad_mismatches)
 
 GLOBAL_BATCH = 4
 LOSS_RTOL = 1e-5
@@ -380,7 +380,8 @@ def print_readings():
     """Per configuration, every gradient outside KINK_SENSITIVE and the
     exact zeros (biases before a training BatchNorm) that two ranks against
     one process or one process against itself (the images moved by 1e-7,
-    16 seeds, or on one thread) moves by more than GRAD_TOL * max|g|."""
+    16 seeds, or on one thread) moves by more than GRAD_TOL * max|g|; and
+    the exact zeros whose |g| passes ZERO_GRAD_TOL on either side."""
     from roma_torch.train.grad_parity import feeds_batch_norm
 
     import json
@@ -390,10 +391,12 @@ def print_readings():
     for model_name in ("tiny", "tiny_tied", "roma"):
         base = one_process(model_name)["grads"]
         with tempfile.TemporaryDirectory() as d:
-            dp = _readings(two_ranks(model_name, __import__("pathlib").Path(d))[0]["grads"], base)
+            dp_grads = two_ranks(model_name, __import__("pathlib").Path(d))[0]["grads"]
+        dp = _readings(dp_grads, base)
         env: dict = {}
         runs = [one_process(model_name, seed) for seed in range(16)]
         runs.append(one_process(model_name, threads=1))
+        runs.append(dict(grads=base))
         for r in runs:
             for n, v in _readings(r["grads"], base).items():
                 env[n] = tuple(max(a, b) for a, b in zip(env.get(n, (0.0, 0.0)), v))
@@ -402,6 +405,12 @@ def print_readings():
                            if max(dp[n][0], env[n][0]) > GRAD_TOL
                            and (model_name != "roma" or n not in KINK_SENSITIVE)
                            and not feeds_batch_norm(model, n)}
+        # the exact zeros: |g| of each side, where either passes ZERO_GRAD_TOL
+        zeros = {n: {"two_ranks": float(dp_grads[n].abs().max()),
+                     "envelope": max(float(r["grads"][n].abs().max()) for r in runs)}
+                 for n in base if feeds_batch_norm(model, n)}
+        out[model_name + " exact zeros"] = {n: z for n, z in zeros.items()
+                                            if max(z.values()) > ZERO_GRAD_TOL}
     print(json.dumps(out, indent=1))
 
 

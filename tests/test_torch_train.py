@@ -165,7 +165,8 @@ def test_gradients_before_the_clip_match_jax(steps):
     got, ref = _jax_and_port_grads(steps)
     bad, worst = grad_mismatches(steps["model"], got, ref)
     assert not bad, f"{len(bad)} gradients off: {bad[:10]}"
-    assert worst["n_tol"] > 60 and worst["n_kink"] == len(KINK_SENSITIVE) and worst["n_zero"] > 20
+    # 88 of the 163 trainable tensors named since C10's re-measure (73 before)
+    assert worst["n_tol"] > 45 and worst["n_kink"] == len(KINK_SENSITIVE) and worst["n_zero"] > 20
 
 
 def test_parameters_and_bn_statistics_after_the_step(steps):

@@ -17,45 +17,6 @@ import torch
 import chip_smoke as cs
 import test_train_to_eval as jax_t2e
 
-# ROADMAP C10: the full-RoMa tensor groups whose default init is not JAX's
-C10_GROUPS = {
-    "encoder.cnn.layers.*.weight",
-    "encoder.cnn.layers.*.bias",
-    "encoder.dinov2.patch_embed.proj.weight",
-    "encoder.dinov2.patch_embed.proj.bias",
-    "encoder.dinov2.blocks.*.attn.qkv.weight",
-    "encoder.dinov2.blocks.*.attn.qkv.bias",
-    "encoder.dinov2.blocks.*.attn.proj.weight",
-    "encoder.dinov2.blocks.*.attn.proj.bias",
-    "encoder.dinov2.blocks.*.mlp.fc1.weight",
-    "encoder.dinov2.blocks.*.mlp.fc1.bias",
-    "encoder.dinov2.blocks.*.mlp.fc2.weight",
-    "encoder.dinov2.blocks.*.mlp.fc2.bias",
-    "decoder.embedding_decoder.blocks.*.attn.qkv.weight",
-    "decoder.embedding_decoder.blocks.*.attn.proj.weight",
-    "decoder.embedding_decoder.blocks.*.attn.proj.bias",
-    "decoder.embedding_decoder.blocks.*.mlp.fc1.weight",
-    "decoder.embedding_decoder.blocks.*.mlp.fc1.bias",
-    "decoder.embedding_decoder.blocks.*.mlp.fc2.weight",
-    "decoder.embedding_decoder.blocks.*.mlp.fc2.bias",
-    "decoder.embedding_decoder.to_out.weight",
-    "decoder.embedding_decoder.to_out.bias",
-    "decoder.gps.*.pos_conv.weight",
-    "decoder.gps.*.pos_conv.bias",
-    "decoder.proj.*.0.weight",
-    "decoder.proj.*.0.bias",
-    "decoder.conv_refiner.*.disp_emb.bias",
-    "decoder.conv_refiner.*.block1.*.weight",
-    "decoder.conv_refiner.*.block1.*.bias",
-    "decoder.conv_refiner.*.hidden_blocks.*.0.weight",
-    "decoder.conv_refiner.*.hidden_blocks.*.0.bias",
-    "decoder.conv_refiner.*.hidden_blocks.*.3.weight",
-    "decoder.conv_refiner.*.hidden_blocks.*.3.bias",
-    "decoder.conv_refiner.*.out_conv.bias",
-    "decoder.conv_refiner.*.out_conv.weight",
-}
-
-
 def test_rendered_world_is_the_jax_tests(tmp_path):
     """chip_smoke's renderer (any size) at the JAX test's 96x128 equals the
     JAX test's renderer bit for bit: images, depths, poses, intrinsics."""
@@ -229,14 +190,16 @@ def full_roma_init_table() -> dict:
     return init_table(got, ref)
 
 
-def test_full_roma_init_differs_as_c10_records():
-    """C10 (open): full RoMa keeps PyTorch's module defaults, which differ
-    from the JAX package's initialisers in these tensor groups (ROADMAP
-    C10's table, printed by `PYTHONPATH=. python
-    tests/test_torch_train_to_eval.py init-table`); Tiny RoMa's default
-    differs in none (C9)."""
+def test_full_roma_init_is_the_jax_packages():
+    """C10 (closed): full RoMa's `build_model` default is the JAX package's
+    initialisation in every tensor group (`layers.flax_init_` on every
+    convolution and linear layer; DINOv2's tokens, the norms and the
+    BatchNorm statistics as the constructor drew them): the table of
+    groups that differ, printed by `PYTHONPATH=. python
+    tests/test_torch_train_to_eval.py init-table`, is empty, as Tiny
+    RoMa's is (C9)."""
     table = full_roma_init_table()
-    assert set(table) == C10_GROUPS, sorted(set(table) ^ C10_GROUPS)
+    assert table == {}, table
 
 
 @pytest.mark.slow
