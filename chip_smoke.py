@@ -72,7 +72,22 @@
    memory (with --profile, one step under torch.profiler); then the debug
    model's float32 train step on the GPU against the CPU (loss rel 1e-4,
    gradients under roma_torch.train.grad_parity, the rule
-   tests/test_torch_train.py holds JAX and the port to);
+   tests/test_torch_train.py holds JAX and the port to); then the ViT
+   block's other options (run_vit_swiglu): 24 ViT-L/14 blocks with the
+   SwiGLU FFN, layer scale, qkv bias and drop_path 0.1 from a generator on
+   the card, bf16, the final LayerNorm and the DINO head (65,536
+   prototypes) on the CLS tokens of (4, 1601, 1024) tokens, AdamW on a DINO
+   loss, 2 warm-up and 3 timed steps, the first counted (K3 24 with lse,
+   K8 24, K9 24), each step's drop_path draws recorded (kept share within
+   5 binomial standard deviations of 0.9), finite loss and gradients, each
+   step's seconds (with its host enqueue time, device span, new cudaMalloc
+   segments and the SM clock nvidia-smi samples meanwhile), their median,
+   and peak memory above what the phase started with; its first 2 blocks
+   in float32 on the card against the CPU (output and every gradient
+   under grad_parity's GRAD_TOL, max-abs and relative L2);
+   resize_bicubic(antialias=False) of
+   a 2 x 864^2 image to 560^2, card against CPU within 1e-5 of max|CPU|;
+   K8, K9 and SDPA's whole backward timed at (4, 1601, 16, 64);
 12. Tiny RoMa training as its CLI composes it (roma_torch/experiments/
    train_tiny_roma_v1_outdoor.py): full width, bf16, 768x1024, batch 8, a
    data-parallel mesh of one rank over NCCL, a PairLoader over synthetic
@@ -136,6 +151,7 @@ go to DIR/chip_smoke.json (default results/chip_smoke/).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -242,11 +258,11 @@ def graph_ms_rounds(fn, iters: int, rounds: int = 5) -> list[float]:
     return out
 
 
-def profiled_device_ms(fn, iters: int = 10) -> float:
+def profiled_device_ms(fn, iters: int = 10, by_kernel: dict | None = None) -> float:
     """Device ms per call of `fn`: the kernels' own time in a torch.profiler
     trace of `iters` calls (host time excluded), for a library call whose
     host work can outlast its kernels (autograd), where CUDA events would
-    time the host."""
+    time the host. `by_kernel` receives each kernel's ms per call."""
     import torch
 
     fn()
@@ -255,9 +271,13 @@ def profiled_device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages())
-    return us / 1e3 / iters
+    total = 0.0
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / iters
+        total += ms
+        if by_kernel is not None and ms > 0:
+            by_kernel[e.key[:80]] = by_kernel.get(e.key[:80], 0.0) + ms
+    return total
 
 
 def median(xs: list[float]) -> float:
@@ -1201,14 +1221,13 @@ def check_attention_bwd(dev, gen, cfg, planted) -> dict:
     the whole `attention_bwd_cuda` call (di + K8 + K9), the plain version
     and SDPA's whole backward (its device time by the profiler, and by CUDA
     events) are timed, with K3's forward with and without
-    its lse, and the launch's blocks per SM and waves are read."""
+    its lse, and the launch's blocks per SM and waves are read
+    (`time_attention_bwd`)."""
     import ctypes
 
     import torch
-    import torch.nn.functional as F
 
     from roma_torch.kernels import attention as at
-    from roma_torch.kernels import runtime
 
     failures, cases = [], []
 
@@ -1274,57 +1293,81 @@ def check_attention_bwd(dev, gen, cfg, planted) -> dict:
                 f"planted fault ({dtype}) exceeds the bound only {ratios}x, not >= 10x")
 
     # timing at the decoder's training shape, bf16
-    q, k, v, dout = main[torch.bfloat16]
+    t = time_attention_bwd(*main[torch.bfloat16])
+    B, N, H, d = main[torch.bfloat16][0].shape
+    worst = lambda name: max(c[name]["max_abs_err"] for c in cases if "bfloat16" in c["dtype"])
+    rows = {}
+    for name, errs in (("flash_attn_dkv", ("dk", "dv")), ("flash_attn_dq", ("dq",))):
+        b_ms, b_by = t["bound"][name]
+        rows[name] = [dict(shape="decoder train", dims=[B, N, H, d], calls=cfg.num_decoder_blocks,
+                           max_abs_err=max(worst(e) for e in errs),
+                           tol="2^-7 |plain| + 8e-3 max|plain|",
+                           ms=median(t[name]), ms_rounds=t[name], plain_ms=t["plain_ms"],
+                           library_ms=median(t["sdpa_ms"]), library_ms_rounds=t["sdpa_ms"],
+                           library_events_ms_rounds=t["sdpa_events_ms"],
+                           bound_ms=b_ms, bound_by=b_by, grid=t["grid"][name])]
+    return dict(rows=rows, cases=cases, planted=planted_rows, whole_ms=median(t["whole_ms"]),
+                whole_ms_rounds=t["whole_ms"], whole_graph_ms=median(t["whole_graph_ms"]),
+                di_graph_ms=median(t["di_graph_ms"]), sdpa_ms=median(t["sdpa_ms"]),
+                sdpa_events_ms=median(t["sdpa_events_ms"]), grid=t["grid"],
+                fwd_ms=median(t["fwd_ms"]), fwd_lse_ms=median(t["fwd_lse_ms"]),
+                fwd_ms_rounds=t["fwd_ms"], fwd_lse_ms_rounds=t["fwd_lse_ms"])
+
+
+def time_attention_bwd(q, k, v, dout) -> dict:
+    """At q's (B, N, H, d), bf16: K8 and K9 each alone through their C
+    entries (no di, no allocation, no host work between launches beyond the
+    ctypes call), the whole `attention_bwd_cuda` call (di + K8 + K9) by
+    CUDA events and on the device alone (CUDA-graph replay, and the plain
+    di's share of it), the plain version, SDPA's whole backward (its device
+    time by the profiler, with its kernels per round, and by CUDA events),
+    the whole call on the profiler's clock too, K3's forward with and
+    without its lse, the launch's blocks per SM and waves, and each
+    backward kernel's bound. Times in ms, five rounds each (sorted)."""
+    import torch
+    import torch.nn.functional as F
+
+    from roma_torch.kernels import attention as at
+    from roma_torch.kernels import runtime
+
     o, lse = at.attention_cuda(q, k, v, with_lse=True)
     B, N, H, d = q.shape
-    # each kernel alone, through its C entry (no di, no allocation, no host
-    # work between launches beyond the ctypes call)
     lib_main, di = runtime.load(at.BWD_NAME), at.attention_di(o, dout)
     outs = tuple(torch.empty_like(q) for _ in range(3))
-    dkv_ms = cuda_ms_rounds(
+    t = dict(dims=[B, N, H, d])
+    t["flash_attn_dkv"] = cuda_ms_rounds(
         lambda: bwd_lib_call(lib_main, q, k, v, dout, lse, di, 0, ("dkv",), outs), 20)
-    dq_ms = cuda_ms_rounds(
+    t["flash_attn_dq"] = cuda_ms_rounds(
         lambda: bwd_lib_call(lib_main, q, k, v, dout, lse, di, 0, ("dq",), outs), 20)
-    whole_ms = cuda_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout), 20)
-    # the same on the device alone (CUDA-graph replay: no host time between
-    # launches), and the plain di's share of it
-    whole_graph_ms = graph_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout), 20)
-    di_graph_ms = graph_ms_rounds(lambda: at.attention_di(o, dout), 20)
-    grid = bwd_grid(lib_main, B, N, H, d, 0)
-    plain_ms = cuda_ms(lambda: at.attention_bwd_plain(q, k, v, o, lse, dout), 3, 1)
-    leaves = [t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    t["whole_ms"] = cuda_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout), 20)
+    t["whole_graph_ms"] = graph_ms_rounds(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout), 20)
+    t["di_graph_ms"] = graph_ms_rounds(lambda: at.attention_di(o, dout), 20)
+    t["grid"] = bwd_grid(lib_main, B, N, H, d, 0)
+    t["plain_ms"] = cuda_ms(lambda: at.attention_bwd_plain(q, k, v, o, lse, dout), 3, 1)
+    leaves = [x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves)
     dout_t = dout.transpose(1, 2)
     sdpa_call = lambda: torch.autograd.grad(sdpa_out, leaves, dout_t, retain_graph=True)
     # SDPA's autograd call can take longer on the host than on the device
     # (on an H100 80GB HBM3, CUDA events read 0.16-0.31 ms where its device time was ~0.145):
     # its device time is the yardstick, its events reading is kept beside it
-    sdpa_events_ms = cuda_ms_rounds(sdpa_call, 20)
-    sdpa_ms = sorted(profiled_device_ms(sdpa_call) for _ in range(3))
-    fwd_ms = cuda_ms_rounds(lambda: at.attention_cuda(q, k, v), 20)
-    fwd_lse_ms = cuda_ms_rounds(lambda: at.attention_cuda(q, k, v, with_lse=True), 20)
+    t["sdpa_events_ms"] = cuda_ms_rounds(sdpa_call, 20)
+    t["sdpa_kernels_ms"] = [{} for _ in range(3)]  # which kernels SDPA's backward ran
+    t["sdpa_ms"] = sorted(profiled_device_ms(sdpa_call, by_kernel=r) for r in t["sdpa_kernels_ms"])
+    # the whole call on the profiler's clock too, the one SDPA is read on
+    t["whole_kernels_ms"] = [{} for _ in range(3)]
+    t["whole_profiled_ms"] = sorted(
+        profiled_device_ms(lambda: at.attention_bwd_cuda(q, k, v, o, lse, dout), by_kernel=r)
+        for r in t["whole_kernels_ms"])
+    t["fwd_ms"] = cuda_ms_rounds(lambda: at.attention_cuda(q, k, v), 20)
+    t["fwd_lse_ms"] = cuda_ms_rounds(lambda: at.attention_cuda(q, k, v, with_lse=True), 20)
     gemm = 2.0 * B * H * N * N * d
     exps = float(B * H * N * N)
     elem = B * N * H * d * 2
     side = 2 * B * H * N * 4  # lse and di
-    worst = lambda name: max(c[name]["max_abs_err"] for c in cases if "bfloat16" in c["dtype"])
-    rows = {}
-    for name, n_gemm, outs, ms, errs in (("flash_attn_dkv", 4, 2, dkv_ms, ("dk", "dv")),
-                                         ("flash_attn_dq", 3, 1, dq_ms, ("dq",))):
-        b_ms, b_by = bound((4 + outs) * elem + side, n_gemm * gemm, exps)
-        rows[name] = [dict(shape="decoder train", dims=[B, N, H, d], calls=cfg.num_decoder_blocks,
-                           max_abs_err=max(worst(e) for e in errs),
-                           tol="2^-7 |plain| + 8e-3 max|plain|",
-                           ms=median(ms), ms_rounds=ms, plain_ms=plain_ms,
-                           library_ms=median(sdpa_ms), library_ms_rounds=sdpa_ms,
-                           library_events_ms_rounds=sdpa_events_ms,
-                           bound_ms=b_ms, bound_by=b_by, grid=grid[name])]
-    return dict(rows=rows, cases=cases, planted=planted_rows, whole_ms=median(whole_ms),
-                whole_ms_rounds=whole_ms, whole_graph_ms=median(whole_graph_ms),
-                di_graph_ms=median(di_graph_ms), sdpa_ms=median(sdpa_ms),
-                sdpa_events_ms=median(sdpa_events_ms), grid=grid,
-                fwd_ms=median(fwd_ms), fwd_lse_ms=median(fwd_lse_ms), fwd_ms_rounds=fwd_ms,
-                fwd_lse_ms_rounds=fwd_lse_ms)
+    t["bound"] = {name: bound((4 + n_out) * elem + side, n_gemm * gemm, exps)
+                  for name, n_gemm, n_out in (("flash_attn_dkv", 4, 2), ("flash_attn_dq", 3, 1))}
+    return t
 
 
 # ---------------------------------------------------------------- training
@@ -1519,6 +1562,314 @@ def check_debug_train_step(dev, card: str) -> dict:
     for k, v in expected.items():
         fail_if(out["launches"][k] != v, f"debug train step: {k} {out['launches'][k]} != {v}")
     fail_if(bool(bad), f"debug float32 train step GPU vs CPU: {bad[:8]}")
+    return res
+
+
+# ---------------------------------------------------------------- ViT-L SwiGLU training
+
+# DINOv2's ViT-L/14 with the block options the matcher does not take:
+# SwiGLU FFN (hidden 2736), stochastic depth 0.1, then the final LayerNorm
+# and the DINO head at DINOv2's published widths on the CLS tokens; the
+# input is DINOv2's training tokens at 560^2 for 2 pairs (A over B), bf16
+VIT = dict(dim=1024, heads=16, depth=24, mlp_ratio=4.0, drop_path_rate=0.1)
+VIT_TOKENS = (2 * PAIRS, 1601, 1024)
+DINO_HEAD = dict(out_dim=65536, hidden_dim=2048, bottleneck_dim=256, nlayers=3)
+VIT_WARMUP = 2  # after one, the next step still read up to twice the later ones
+VIT_STEPS = 3
+VIT_LR = 1e-4
+VIT_PARITY_BLOCKS = 2
+RESIZE_CHECK = ((2, 864, 864, 3), (560, 560))
+RESIZE_TOL = 1e-5  # of max|plain|: the same float32 products in another order
+
+
+@contextlib.contextmanager
+def sm_clock_samples():
+    """Yields a list that holds, once the block ends, the SM clock (MHz)
+    nvidia-smi read every 20 ms while the block ran."""
+    clocks: list[int] = []
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                             "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    try:
+        first = proc.stdout.readline().strip()  # nvidia-smi is sampling from here
+        clocks += [int(first)] if first.isdigit() else []
+        yield clocks
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+        clocks += [int(x) for x in out.split() if x.isdigit()]
+
+
+def vit_swiglu_blocks(dtype, drop_path_rate: float, depth: int):
+    """`depth` ViT-L/14 blocks with layer scale, qkv bias and the SwiGLU FFN."""
+    import torch
+
+    from roma_torch.models.transformer import Block
+
+    return torch.nn.ModuleList(
+        Block(VIT["dim"], VIT["heads"], VIT["mlp_ratio"], layer_scale=True, qkv_bias=True,
+              dtype=dtype, ffn_layer="swiglu", drop_path_rate=drop_path_rate)
+        for _ in range(depth))
+
+
+def dino_loss(logits):
+    """DINO's cross-entropy between the two views of each pair: the
+    student's log-softmax at temperature 0.1 against the other view's
+    softmax at 0.04, detached, in both directions."""
+    import torch.nn.functional as F
+
+    B = logits.shape[0] // 2
+
+    def ce(student, teacher):
+        t = F.softmax(teacher.detach() / 0.04, dim=-1)
+        return -(t * F.log_softmax(student / 0.1, dim=-1)).sum(-1).mean()
+
+    return 0.5 * (ce(logits[:B], logits[B:]) + ce(logits[B:], logits[:B]))
+
+
+def run_vit_swiglu(dev, gen, card: str, profile_dir: Path | None = None) -> dict:
+    """The ViT-L/14 SwiGLU stack (`VIT`: 24 blocks, 16 heads of 64, bf16,
+    drop_path 0.1 from a seeded generator on the card), the final
+    LayerNorm and `DINO_HEAD` on the CLS tokens of (4, 1601, 1024) tokens,
+    trained with the port's AdamW on `dino_loss`: `VIT_WARMUP` steps, then
+    `VIT_STEPS` timed, the launch counters reset just before the first and
+    read just after it (K3 24 with lse, K8 24, K9 24; every other kernel
+    0). Each step's drop_path masks are recorded as drawn (2 x 24 x 4 a
+    step); their kept share must lie within 5 binomial standard deviations
+    of 0.9. Finite loss and gradients. Each timed step's seconds and its
+    readings (`step_readings`), their median, the memory allocated when
+    the phase starts and the peak above it (with `profile_dir`, one more
+    step under torch.profiler). Then
+    `check_vit_parity`, `check_resize_antialias` and K8/K9 timed at this
+    shape beside SDPA's whole backward (`time_attention_bwd`)."""
+    import torch
+
+    from roma_torch.config import TrainConfig
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.models import transformer
+    from roma_torch.models.layers import flax_init_, layer_norm
+    from roma_torch.train.train import make_optimizer
+
+    start_mem = torch.cuda.memory_allocated()
+    with torch.random.fork_rng(devices=[dev]), torch.device(dev):
+        torch.manual_seed(SEED)
+        blocks = flax_init_(vit_swiglu_blocks(torch.bfloat16, VIT["drop_path_rate"], VIT["depth"]))
+        norm = torch.nn.LayerNorm(VIT["dim"], eps=1e-6)
+        head = transformer.DINOHead(VIT["dim"], **DINO_HEAD)
+    model = torch.nn.ModuleList([blocks, norm, head]).train()
+    params = list(model.parameters())
+    opt = make_optimizer(TrainConfig(), VIT_LR, params)
+    drop_gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step(tokens, marks: dict | None = None):
+        t0 = time.perf_counter()
+        x = tokens
+        for blk in blocks:
+            x = blk(x, generator=drop_gen)
+        loss = dino_loss(head(layer_norm(norm, x)[:, 0]))
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        t2 = time.perf_counter()
+        opt.step()
+        if marks is not None:  # the host's time to enqueue each part
+            marks.update(forward_s=t1 - t0, backward_s=t2 - t1, optimizer_s=time.perf_counter() - t2)
+        return loss.detach()
+
+    def timed(tokens):
+        """One step ending in a synchronize: its loss and readings (seconds,
+        host enqueue time and its parts, device span by CUDA events, new
+        cudaMalloc segments)."""
+        reading = {}
+        segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = step(tokens, reading)
+        ev[1].record()
+        reading["enqueue_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reading["s"] = time.perf_counter() - t0
+        reading.update(device_span_ms=ev[0].elapsed_time(ev[1]), new_segments=torch.cuda.memory_stats()
+                       .get("segment.all.allocated", 0) - segments)
+        return loss, reading
+
+    batches = [torch.randn(VIT_TOKENS, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(VIT_WARMUP + VIT_STEPS)]
+    warmup = [timed(tokens)[1] for tokens in batches[:VIT_WARMUP]]
+    warmup_s = [r["s"] for r in warmup]
+    torch.cuda.reset_peak_memory_stats()
+    draw_mask = transformer.drop_path_mask
+    times, readings, losses, kept, finite = [], [], [], [], []
+    with sm_clock_samples() as clocks:
+        for i, tokens in enumerate(batches[VIT_WARMUP:]):
+            masks = []
+
+            def recorded(x, rate, generator, masks=masks):
+                m = draw_mask(x, rate, generator)
+                masks.append(m)
+                return m
+
+            transformer.drop_path_mask = recorded
+            try:
+                if i == 0:
+                    reset_launches()
+                loss, reading = timed(tokens)
+                if i == 0:
+                    launches = dict(LAUNCHES)
+            finally:
+                transformer.drop_path_mask = draw_mask
+            times.append(reading["s"])
+            readings.append(reading)
+            draws = torch.cat([m.flatten() for m in masks])
+            kept.append(dict(draws=draws.numel(), kept=int(draws.sum())))
+            losses.append(loss.item())
+            finite.append(bool(torch.stack([p.grad.isfinite().all() for p in params]).all()))
+    n_params = sum(p.numel() for p in params)
+    res = dict(warmup_s=warmup_s, warmup_readings=warmup, step_s=times, median_step_s=median(sorted(times)),
+               step_readings=readings, sm_clock_mhz=clocks, start_mem_gb=start_mem / 1e9,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_above_start_gb=(torch.cuda.max_memory_allocated() - start_mem) / 1e9,
+               launches=launches, losses=losses, drop_path=kept, params=n_params)
+    expected = {name: 0 for name in KERNELS}
+    expected.update(flash_attn=VIT["depth"], flash_attn_dkv=VIT["depth"], flash_attn_dq=VIT["depth"])
+    res["expected_launches"] = expected
+    keep = 1.0 - VIT["drop_path_rate"]
+    n_draws = 2 * VIT["depth"] * VIT_TOKENS[0]
+    band = 5.0 * math.sqrt(keep * (1 - keep) / n_draws)
+    print(f"[{card}] ViT-L/14 SwiGLU stack ({VIT['depth']} blocks, dim {VIT['dim']}, "
+          f"{VIT['heads']} heads of {VIT['dim'] // VIT['heads']}, hidden "
+          f"{blocks[0].mlp.w3.in_features}, drop_path {VIT['drop_path_rate']}, bf16) + DINO head "
+          f"({DINO_HEAD['out_dim']}) on {VIT_TOKENS}, {n_params} parameters, AdamW: warm-up "
+          f"{', '.join(f'{t:.4f}' for t in warmup_s)} s, then {', '.join(f'{t:.4f}' for t in times)} "
+          f"s (median {res['median_step_s']:.4f}); peak {res['peak_mem_gb']:.2f} GB "
+          f"({res['peak_above_start_gb']:.2f} above the {res['start_mem_gb']:.2f} allocated at "
+          f"the start); launches a step {launches}", flush=True)
+    print(f"[{card}] ViT-L SwiGLU warm-up steps: {json.dumps(warmup)}", flush=True)
+    print(f"[{card}] ViT-L SwiGLU timed steps: {json.dumps(readings)}; SM clock "
+          f"{min(clocks, default=0)}-{max(clocks, default=0)} MHz (median "
+          f"{median(sorted(clocks)) if clocks else 0}, {len(clocks)} nvidia-smi samples)", flush=True)
+    print(f"[{card}] ViT-L SwiGLU drop_path kept per step "
+          f"{[k['kept'] for k in kept]} of {n_draws} (band {keep} +- {band:.4f}); "
+          f"loss {losses}", flush=True)
+    for name, n in expected.items():
+        fail_if(launches[name] != n, f"ViT-L SwiGLU step: {name}: {launches[name]} launches, "
+                                     f"expected {n}")
+    for k in kept:
+        fail_if(k["draws"] != n_draws, f"ViT-L SwiGLU step: {k['draws']} drop_path draws, "
+                                       f"expected {n_draws}")
+        fail_if(abs(k["kept"] / k["draws"] - keep) > band,
+                f"ViT-L SwiGLU step: kept share {k['kept'] / k['draws']:.4f} outside "
+                f"{keep} +- {band:.4f}")
+    fail_if(not all(math.isfinite(x) for x in losses), f"ViT-L SwiGLU step: loss {losses}")
+    fail_if(not all(finite), "ViT-L SwiGLU step: non-finite gradients")
+    if profile_dir is not None:
+        res["profile"] = profile_train_step(lambda _, tokens: step(tokens), None, batches[1],
+                                            profile_dir, "vit.", "profile_vit_swiglu.txt")
+        print(f"[{card}] ViT-L SwiGLU profile: {json.dumps(res['profile'])}", flush=True)
+
+    res["parity"] = check_vit_parity(blocks, dev, gen, card)
+    del model, blocks, norm, head, opt, params, batches
+    torch.cuda.empty_cache()
+    res["resize"] = check_resize_antialias(dev, gen, card)
+
+    # K8 and K9 alone at this shape, beside SDPA's whole backward
+    B, N, D = VIT_TOKENS
+    H = VIT["heads"]
+    qkv = torch.randn((B, N, 3, H, D // H), generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn((B, N, H, D // H), generator=gen, device=dev).to(torch.bfloat16)
+    t = time_attention_bwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dout)
+    res["attention_bwd"] = t
+    print(f"[{card}] flash_attn bwd at {t['dims']} bf16: K8 {median(t['flash_attn_dkv']):.4f} ms "
+          f"(bound {t['bound']['flash_attn_dkv'][0]:.4f}, {t['bound']['flash_attn_dkv'][1]}), "
+          f"K9 {median(t['flash_attn_dq']):.4f} ms (bound {t['bound']['flash_attn_dq'][0]:.4f}, "
+          f"{t['bound']['flash_attn_dq'][1]}); the whole attention_bwd_cuda call "
+          f"{median(t['whole_ms']):.4f} ms ({median(t['whole_graph_ms']):.4f} by graph replay, di "
+          f"{median(t['di_graph_ms']):.4f}); SDPA's whole backward {median(t['sdpa_ms']):.4f} ms "
+          f"on the device ({median(t['sdpa_events_ms']):.4f} by CUDA events); plain "
+          f"{t['plain_ms']:.3f} ms; K3 {median(t['fwd_ms']):.4f} ms, with lse "
+          f"{median(t['fwd_lse_ms']):.4f}; launches {json.dumps(t['grid'])}", flush=True)
+    print(f"[{card}] on the profiler's clock at {t['dims']}: SDPA's backward {t['sdpa_ms']} ms, "
+          f"the whole attention_bwd_cuda call {t['whole_profiled_ms']} ms; their kernels (ms a "
+          f"call, each round): SDPA {json.dumps(t['sdpa_kernels_ms'])}; ours "
+          f"{json.dumps(t['whole_kernels_ms'])}", flush=True)
+    return res
+
+
+def check_vit_parity(blocks, dev, gen, card: str) -> dict:
+    """A float32 copy of the stack's first `VIT_PARITY_BLOCKS` blocks (the
+    same weights, drop_path off, train mode) on (1, 1601, 1024) tokens, on
+    the card (K3's float32 entry with lse, K8, K9: 2 launches each) and on
+    the CPU (plain versions): the output within GRAD_TOL * max|CPU|, and
+    every parameter's gradient of sum(y * w), and the input's, under
+    `roma_torch.train.grad_parity` (GRAD_TOL * max|g| per tensor; no tensor
+    here sits behind a BatchNorm or a ReLU kink) and within a relative L2
+    error of GRAD_TOL."""
+    import torch
+
+    from roma_torch.kernels import LAUNCHES, reset_launches
+    from roma_torch.train.grad_parity import GRAD_TOL, grad_mismatches
+
+    x = torch.randn((1,) + VIT_TOKENS[1:], generator=gen, device=dev)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    states = [{k: v.detach().cpu() for k, v in blk.state_dict().items()}
+              for blk in blocks[:VIT_PARITY_BLOCKS]]
+    out, grads = {}, {}
+    for where in ("cpu", dev):
+        m = vit_swiglu_blocks(torch.float32, 0.0, VIT_PARITY_BLOCKS)
+        for blk, sd in zip(m, states):
+            blk.load_state_dict(sd)
+        m = m.to(where).train()
+        xx = x.to(where).requires_grad_()
+        reset_launches()
+        y = xx
+        for blk in m:
+            y = blk(y)
+        (y * w.to(where)).sum().backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        out[str(where)] = y.detach().cpu()
+        grads[str(where)] = {n: p.grad.cpu() for n, p in m.named_parameters()}
+        grads[str(where)]["input"] = xx.grad.cpu()
+    cpu, gpu = out["cpu"], out[str(dev)]
+    rel_l2 = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    fwd = dict(max_abs_over_max=((gpu - cpu).abs().max() / cpu.abs().max()).item(),
+               rel_l2=rel_l2(gpu, cpu))
+    bad, worst = grad_mismatches(m, grads[str(dev)], grads["cpu"], named={})
+    l2 = {n: rel_l2(grads[str(dev)][n], r) for n, r in grads["cpu"].items()}
+    bad += [f"{n}: relative L2 {e:.3g} > {GRAD_TOL}" for n, e in l2.items() if e > GRAD_TOL]
+    res = dict(forward=fwd, grads=worst, grad_rel_l2_max=max(l2.values()), launches=launches)
+    print(f"[{card}] ViT-L SwiGLU {VIT_PARITY_BLOCKS} blocks float32 GPU vs CPU: "
+          + json.dumps(res), flush=True)
+    for name in ("flash_attn", "flash_attn_dkv", "flash_attn_dq"):
+        fail_if(launches[name] != VIT_PARITY_BLOCKS,
+                f"ViT-L parity: {name} {launches[name]} launches, expected {VIT_PARITY_BLOCKS}")
+    fail_if(fwd["max_abs_over_max"] > GRAD_TOL or fwd["rel_l2"] > GRAD_TOL,
+            f"ViT-L parity forward: {fwd}")
+    fail_if(bool(bad), f"ViT-L parity gradients: {bad[:8]}")
+    return res
+
+
+def check_resize_antialias(dev, gen, card: str) -> dict:
+    """`resize_bicubic(antialias=False)` (the JAX package's unwidened Keys
+    cubic as two interpolation matrices) of a float32 image batch on the
+    card against the CPU, within RESIZE_TOL of max|CPU|."""
+    import torch
+
+    from roma_torch.ops.resize import resize_bicubic
+
+    shape, size = RESIZE_CHECK
+    img = torch.rand(shape, generator=gen, device=dev)
+    got = resize_bicubic(img, size, antialias=False)
+    ms = cuda_ms(lambda: resize_bicubic(img, size, antialias=False), 10)
+    ref = resize_bicubic(img.cpu(), size, antialias=False)
+    fail_if(tuple(got.shape) != (shape[0], *size, shape[-1]), f"resize: shape {tuple(got.shape)}")
+    err = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+    res = dict(shape=list(shape), size=list(size), max_abs_over_max=err, tol=RESIZE_TOL, ms=ms)
+    print(f"[{card}] resize_bicubic(antialias=False) {shape} -> {size} GPU vs CPU: "
+          + json.dumps(res), flush=True)
+    fail_if(not err <= RESIZE_TOL, f"resize_bicubic(antialias=False): {err:.3e} of max|CPU|")
     return res
 
 
@@ -3697,6 +4048,8 @@ def main() -> int:
     report["train"] = run_training(dev, gen, card, out_dir if args.profile else None)
     torch.cuda.empty_cache()
     report["debug_train_step"] = check_debug_train_step(dev, card)
+    torch.cuda.empty_cache()
+    report["vit_swiglu"] = run_vit_swiglu(dev, gen, card, out_dir if args.profile else None)
     torch.cuda.empty_cache()
     report["tiny_train"] = run_tiny_training(dev, gen, card, out_dir if args.profile else None)
     torch.cuda.empty_cache()

@@ -188,6 +188,11 @@ class RomaModel(nn.Module):
         self.decoder = Decoder(cfg)
         self.train(False)  # eval until model.train(), as JAX's train=False default
 
+    def encode(self, x: torch.Tensor, coarse: bool = True) -> dict[int, torch.Tensor]:
+        """The feature pyramid of (B, 3, H, W) images; `coarse` adds DINOv2's
+        scale 16."""
+        return self.encoder(x, coarse=coarse)
+
     def forward(
         self,
         im_a: torch.Tensor,
@@ -202,7 +207,7 @@ class RomaModel(nn.Module):
         and B->A in one batch; outputs then have leading dim 2B."""
         B = im_a.shape[0]
         x = torch.cat([im_a, im_b], dim=0).permute(0, 3, 1, 2)
-        pyramid = self.encoder(x, coarse=not upsample)
+        pyramid = self.encode(x, coarse=not upsample)
         if symmetric:
             f_q = pyramid
             f_s = {k: torch.cat([v[B:], v[:B]], dim=0) for k, v in pyramid.items()}

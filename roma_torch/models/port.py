@@ -70,8 +70,11 @@ class _Writer:
         self.linear(f"{key}.attn.qkv", p["attn"]["qkv"])
         self.linear(f"{key}.attn.proj", p["attn"]["proj"])
         self.norm(f"{key}.norm2", p["norm2"])
-        self.linear(f"{key}.mlp.fc1", p["mlp"]["fc1"])
-        self.linear(f"{key}.mlp.fc2", p["mlp"]["fc2"])
+        # both FFN layouts of the JAX Block: "mlp" (fc1, fc2) and "swiglu"
+        # (w12, w3), each under the same names in the port
+        for name in ("fc1", "fc2", "w12", "w3"):
+            if name in p["mlp"]:
+                self.linear(f"{key}.mlp.{name}", p["mlp"][name])
         for ls in ("ls1", "ls2"):
             if ls in p:
                 self.sd[f"{key}.{ls}.gamma"] = _t(p[ls]["gamma"])
@@ -123,6 +126,21 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
             w.batchnorm(f"{key}.{dst}.1", rp[src]["norm"], rs[src]["norm"])
             w.conv(f"{key}.{dst}.3", rp[src]["conv2"])
         w.conv(f"{key}.out_conv", rp["out_conv"])
+    return w.sd
+
+
+def dino_head_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX `DINOHead` variables ({"params"}, numpy leaves) -> this
+    package's `DINOHead` state_dict: ``mlp_{i}`` -> ``mlp.{2i}`` (the
+    Sequential's Linear between GELUs; ``mlp`` itself for one layer) and
+    the prototypes ``last_layer_v`` (bottleneck, out) ->
+    ``last_layer.weight`` (out, bottleneck), unnormalised as stored."""
+    params = variables["params"]
+    w = _Writer()
+    n = _count(params, "mlp_")
+    for i in range(n):
+        w.linear("mlp" if n == 1 else f"mlp.{2 * i}", params[f"mlp_{i}"])
+    w.sd["last_layer.weight"] = linear_weight(params["last_layer_v"])
     return w.sd
 
 

@@ -56,6 +56,10 @@ def roma_outdoor(
     return RomaMatcher(build_model(cfg, seed), device=device)
 
 
+# the same architecture under the reference's indoor factory's name
+roma_indoor = roma_outdoor
+
+
 def tiny_roma_v1_outdoor(seed: int = 0, device=None,
                          cfg: TinyRomaConfig | None = None) -> TinyRomaMatcher:
     """Tiny RoMa v1 (XFeat 64/24, matchers 256/64, 4 blocks each). `device`

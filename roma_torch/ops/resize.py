@@ -7,6 +7,10 @@ at the public functions, as in the JAX package's `ops/resize.py`.
 - `resize_bicubic`: Keys cubic with a=-0.5, filter widened on downscale and
   weights renormalised over the taps inside the image. That is PyTorch's
   antialiased bicubic (``antialias=True``), not its plain a=-0.75 bicubic.
+  With ``antialias=False`` the filter is not widened (``jax.image.resize``'s
+  cubic without antialiasing): two interpolation matrices from
+  `keys_cubic_matrix`, since PyTorch's un-antialiased bicubic is the
+  a=-0.75 kernel with a clamped border.
 - `interpolate_nearest`: nearest with half-pixel centers (PyTorch's
   "nearest-exact").
 - `torch_bicubic_resize`: the a=-0.75, clamped-border bicubic of
@@ -55,8 +59,13 @@ def pad_to_multiple(x: torch.Tensor, multiple: int = 32) -> torch.Tensor:
     return interpolate_bilinear(x, ((h // multiple) * multiple, (w // multiple) * multiple))
 
 
-def resize_bicubic(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    """Keys a=-0.5 bicubic with antialiasing on downscale (NHWC, float)."""
+def resize_bicubic(x: torch.Tensor, size: tuple[int, int],
+                   antialias: bool = True) -> torch.Tensor:
+    """Keys a=-0.5 bicubic (NHWC, float), with antialiasing on downscale
+    unless `antialias` is False (the two agree on upscale)."""
+    if not antialias:
+        return _separable(x, keys_cubic_matrix(x.shape[-3], size[0]),
+                          keys_cubic_matrix(x.shape[-2], size[1]))
     return _nhwc_call(
         x,
         lambda t: F.interpolate(
@@ -73,6 +82,21 @@ def _cubic_conv_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
         ((a + 2) * at - (a + 3)) * at * at + 1,
         np.where(at < 2, a * (((at - 5) * at + 8) * at - 4), 0.0),
     )
+
+
+def keys_cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) matrix of ``jax.image.resize(method="cubic",
+    antialias=False)`` along one axis: Keys a=-0.5 at source position
+    ``(dst + 0.5) * n_in / n_out - 0.5``, the filter not widened, each row
+    renormalised over the taps inside the image (a row summing to nearly 0
+    is zeroed, as is one whose centre lies outside the image)."""
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    w = _cubic_conv_kernel(np.abs(src[:, None] - np.arange(n_in)[None, :]), a=-0.5)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (src >= -0.5) & (src <= n_in - 0.5)
+    return np.where(inside[:, None], w, 0.0)
 
 
 def torch_bicubic_matrix(n_in: int, n_out: int, scale: float) -> np.ndarray:
@@ -101,11 +125,15 @@ def torch_bicubic_resize(
     h, w = size
     sh = scale[0] if scale is not None else h / h_in
     sw = scale[1] if scale is not None else w / w_in
+    return _separable(x, torch_bicubic_matrix(h_in, h, sh), torch_bicubic_matrix(w_in, w, sw))
+
+
+def _separable(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+    """(..., H, W, C) -> (..., h, w, C) through the (h, H) and (w, W)
+    interpolation matrices, in float32 on x's device."""
     kw = dict(device=x.device, dtype=torch.float32)
-    mh = torch.as_tensor(torch_bicubic_matrix(h_in, h, sh), **kw)
-    mw = torch.as_tensor(torch_bicubic_matrix(w_in, w, sw), **kw)
-    y = torch.einsum("hi,...iwc->...hwc", mh, x.float())
-    return torch.einsum("wj,...hjc->...hwc", mw, y).to(x.dtype)
+    y = torch.einsum("hi,...iwc->...hwc", torch.as_tensor(mh, **kw), x.float())
+    return torch.einsum("wj,...hjc->...hwc", torch.as_tensor(mw, **kw), y).to(x.dtype)
 
 
 def _pil_bicubic_filter(x: np.ndarray) -> np.ndarray:
