@@ -38,7 +38,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 from PIL import Image
-from torch.profiler import record_function
+
+from roma_torch.utils.profiling import span
 
 # bank rows kept on the device (per source size and canvas: four matrices
 # of at most 864 x 1600 float32 each, ~19 MB at MegaDepth's largest)
@@ -293,11 +294,11 @@ def run_batched_eval(
         for start in range(0, n, B):
             stop = min(start + B, n)
             nb = stop - start
-            with record_function("eval.load_wait"):
+            with span("eval.load_wait"):
                 loaded, inputs, event = pending.result()
             if stop < n:
                 pending = submit_upload(stop)
-            with record_function("eval.match"):
+            with span("eval.match"):
                 if fast:
                     tensors, made = inputs
                     Uploader.on_main(tensors + (made or []), event)
@@ -310,7 +311,7 @@ def run_batched_eval(
                     warps = torch.stack([torch.as_tensor(o[0]) for o in outs])
                     certs = torch.stack([torch.as_tensor(o[1]) for o in outs])
             gens = [pair_generator(seed, global_ids[j], warps.device) for j in range(start, stop)]
-            with record_function("eval.sample"):
+            with span("eval.sample"):
                 if fast and hasattr(matcher, "sample_batched"):
                     sparse_b = matcher.sample_batched(warps, certs, sample_num, gens)[0]
                 else:
@@ -319,7 +320,7 @@ def run_batched_eval(
                                                        generator=gens[i])[0])
                         for i in range(nb)
                     ])
-            with record_function("eval.fetch"):
+            with span("eval.fetch"):
                 host, fetched = fetch_to_host(sparse_b)
             for i in range(nb):
                 idx = start + i

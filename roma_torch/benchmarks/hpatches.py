@@ -18,12 +18,12 @@ from __future__ import annotations
 import os
 
 import numpy as np
-from torch.profiler import record_function
 
 from roma_torch.benchmarks.harness_core import (host_numpy, open_rgb, pair_generator,
                                                 run_batched_eval)
 from roma_torch.estimation.homography import estimate_homography_ransac
 from roma_torch.utils.geometry import pose_auc
+from roma_torch.utils.profiling import span
 
 try:
     import cv2
@@ -142,9 +142,9 @@ class HpatchesHomogBenchmark:
         for path_a, path_b, H_gt, gid in items:
             im_a, im_b = open_rgb(path_a), open_rgb(path_b)
             # PIL straight to the matcher (host resize, fixed model shapes)
-            with record_function("eval.match"):
+            with span("eval.match"):
                 warp, certainty = matcher.match(im_a, im_b)
-            with record_function("eval.sample"):
+            with span("eval.sample"):
                 sparse, _ = matcher.sample(warp, certainty, self.sample_num,
                                            generator=pair_generator(0, gid, warp.device))
             homog_dists.append(self._pair_dist(

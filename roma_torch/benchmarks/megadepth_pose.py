@@ -24,12 +24,12 @@ from __future__ import annotations
 import os
 
 import numpy as np
-from torch.profiler import record_function
 
 from roma_torch.benchmarks.harness_core import (estimate_pose_reps, host_numpy, open_rgb,
                                                 pair_generator, run_batched_eval)
 from roma_torch.benchmarks.pose_backends import get_pose_backend
 from roma_torch.utils.geometry import compute_pose_error, compute_relative_pose, pose_auc
+from roma_torch.utils.profiling import span
 
 DEFAULT_SCENES = [
     "0015_0.1_0.3.npz",
@@ -176,10 +176,10 @@ class MegaDepthPoseEstimationBenchmark:
         tot_e_pose: list[float] = []
         for item in items:
             im_a, im_b = open_rgb(item[0]), open_rgb(item[1])
-            with record_function("eval.match"):
+            with span("eval.match"):
                 warp, certainty = matcher.match(im_a, im_b)
             gen = pair_generator(self.seed, item[-1], warp.device)
-            with record_function("eval.sample"):
+            with span("eval.sample"):
                 sparse, _ = matcher.sample(warp, certainty, self.sample_num, generator=gen)
             sparse = host_numpy(sparse)
             tot_e_pose.extend(self._pair_job(

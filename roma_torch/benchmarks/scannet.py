@@ -17,13 +17,13 @@ from __future__ import annotations
 import os.path as osp
 
 import numpy as np
-from torch.profiler import record_function
 
 from roma_torch.benchmarks.harness_core import (estimate_pose_reps, host_numpy, open_rgb,
                                                 pair_generator, run_batched_eval)
 from roma_torch.benchmarks.megadepth_pose import summarize_pose_errors
 from roma_torch.benchmarks.pose_backends import get_pose_backend
 from roma_torch.utils.geometry import compute_pose_error
+from roma_torch.utils.profiling import span
 
 
 class ScanNetBenchmark:
@@ -148,10 +148,10 @@ class ScanNetBenchmark:
             im_a, im_b = open_rgb(item[0]), open_rgb(item[1])
             # PIL handed straight to the matcher: the host-side resize keeps
             # the model at its fixed shapes
-            with record_function("eval.match"):
+            with span("eval.match"):
                 warp, certainty = matcher.match(im_a, im_b)
             gen = pair_generator(self.seed, item[-1], warp.device)
-            with record_function("eval.sample"):
+            with span("eval.sample"):
                 sparse, _ = matcher.sample(warp, certainty, self.sample_num, generator=gen)
             sparse = host_numpy(sparse)
             perms = [shuffle_rng.permutation(len(sparse))

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from roma_torch.models.layers import layer_norm
 from roma_torch.models.transformer import Block
 from roma_torch.ops.resize import torch_bicubic_resize
+from roma_torch.utils.profiling import span
 
 
 class PatchEmbed(nn.Module):
@@ -50,9 +51,10 @@ class DinoViT(nn.Module):
         # bicubic pos-embed resize with the reference's +0.1 scale offset
         patch_pos = self.pos_embed[:, 1:].reshape(1, n0, n0, D)
         if (h, w) != (n0, n0):
-            patch_pos = torch_bicubic_resize(
-                patch_pos.float(), (h, w), scale=((h + 0.1) / n0, (w + 0.1) / n0)
-            )
+            with span("roma.dinov2.pos_embed"):
+                patch_pos = torch_bicubic_resize(
+                    patch_pos.float(), (h, w), scale=((h + 0.1) / n0, (w + 0.1) / n0)
+                )
         tokens = tokens + patch_pos.reshape(1, h * w, D).to(dt)
         cls = (self.cls_token + self.pos_embed[:, :1]).to(dt)
         tokens = torch.cat([cls.expand(B, 1, D), tokens], dim=1)

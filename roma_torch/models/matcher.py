@@ -25,7 +25,6 @@ from typing import Mapping
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from roma_torch.config import RomaConfig
 from roma_torch.device import resolve_device
@@ -40,6 +39,7 @@ from roma_torch.ops.corr import coord_grid
 from roma_torch.ops.resize import (interpolate_bilinear, pil_bicubic_matrix,
                                    pil_bicubic_resize_device, resize_bicubic)
 from roma_torch.utils.geometry import cls_to_flow_refine, normalized_to_pixel
+from roma_torch.utils.profiling import span
 from roma_torch.utils.sampling import sample_matches
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -63,14 +63,14 @@ class CNNandDinov2(nn.Module):
         self.train(False)  # eval until model.train(), as JAX's train=False default
 
     def forward(self, x: torch.Tensor, coarse: bool = True) -> dict[int, torch.Tensor]:
-        with record_function("roma.vgg"):
+        with span("roma.vgg"):
             if self.training and torch.is_grad_enabled():
                 pyramid = checkpoint(self.cnn, x)  # recomputed in backward
             else:
                 pyramid = self.cnn(x)
         if coarse:
             # frozen: no graph is recorded and nothing flows back into it
-            with record_function("roma.dinov2"), torch.no_grad():
+            with span("roma.dinov2"), torch.no_grad():
                 pyramid[16] = self.dinov2(x).permute(0, 3, 1, 2).detach()
         return pyramid
 
@@ -144,9 +144,9 @@ class Decoder(nn.Module):
 
             if ins == 16:
                 a_hw = f1_s.permute(0, 2, 3, 1)
-                with record_function("roma.gp"):
+                with span("roma.gp"):
                     gp_posterior = self.gps["16"](a_hw, f2_s.permute(0, 2, 3, 1))
-                with record_function("roma.match_decoder"):
+                with span("roma.match_decoder"):
                     gm_cls, certainty = self.embedding_decoder(gp_posterior, a_hw)
                     flow = cls_to_flow_refine(gm_cls)
                 if train:
@@ -155,7 +155,7 @@ class Decoder(nn.Module):
             if s in self.conv_refiner:
                 if train:
                     out["flow_pre_delta"] = flow
-                with record_function(f"roma.refiner{s}"):
+                with span(f"roma.refiner{s}"):
                     delta_flow, delta_cert = self.conv_refiner[s](
                         f1_s, f2_s, flow, scale_factor=scale_factor
                     )
@@ -299,7 +299,7 @@ class RomaMatcher:
         Returns batched (warp, certainty)."""
         cfg = self.cfg
         hs, ws = cfg.coarse_resolution
-        with record_function("roma.coarse_pass"):
+        with span("roma.coarse_pass"):
             corresps = self.model(self._as_normalized(a), self._as_normalized(b),
                                   symmetric=cfg.symmetric)
         cert16 = corresps[16]["certainty"] if cfg.attenuate_cert else None
@@ -307,7 +307,7 @@ class RomaMatcher:
             hs, ws = cfg.upsample_resolution
             finest = corresps[1]
             sf = math.sqrt((hs * ws) / (cfg.coarse_resolution[0] * cfg.coarse_resolution[1]))
-            with record_function("roma.upsample_pass"):
+            with span("roma.upsample_pass"):
                 corresps = self.model(
                     self._as_normalized(a2), self._as_normalized(b2),
                     symmetric=cfg.symmetric, upsample=True, flow=finest["flow"],
@@ -315,7 +315,7 @@ class RomaMatcher:
                 )
         if cert16 is None:
             cert16 = torch.zeros_like(corresps[1]["certainty"][:, :1, :1])
-        with record_function("roma.postprocess"):
+        with span("roma.postprocess"):
             return self._postprocess(
                 corresps[1]["flow"], corresps[1]["certainty"], cert16, hs=hs, ws=ws,
                 symmetric=cfg.symmetric, attenuate=cfg.attenuate_cert,
@@ -329,28 +329,29 @@ class RomaMatcher:
         output resolution (upsample_resolution when two-pass)."""
         from PIL import Image
 
-        if isinstance(im_a, (str, bytes)) or hasattr(im_a, "__fspath__"):
-            im_a = Image.open(im_a)
-            im_b = Image.open(im_b)
-        cfg = self.cfg
-        hc, wc = cfg.coarse_resolution
-        hu, wu = cfg.upsample_resolution
-        if isinstance(im_a, Image.Image):
-            a, b = (self.host_resize_np(im, hc, wc)[None] for im in (im_a, im_b))
-            a2 = b2 = None
-            if cfg.upsample_preds:
-                a2, b2 = (self.host_resize_np(im, hu, wu)[None] for im in (im_a, im_b))
-        else:
-            im_a = self._to_device(im_a).float()
-            im_b = self._to_device(im_b).float()
-            if im_a.ndim == 3:
-                im_a, im_b = im_a[None], im_b[None]
-            with record_function("roma.preprocess"):
-                a, b = self._preprocess(im_a, im_b, hs=hc, ws=wc)
+        with span("roma.match"):
+            if isinstance(im_a, (str, bytes)) or hasattr(im_a, "__fspath__"):
+                im_a = Image.open(im_a)
+                im_b = Image.open(im_b)
+            cfg = self.cfg
+            hc, wc = cfg.coarse_resolution
+            hu, wu = cfg.upsample_resolution
+            if isinstance(im_a, Image.Image):
+                a, b = (self.host_resize_np(im, hc, wc)[None] for im in (im_a, im_b))
                 a2 = b2 = None
                 if cfg.upsample_preds:
-                    a2, b2 = self._preprocess(im_a, im_b, hs=hu, ws=wu)
-        warp, certainty = self.match_prepped(a, b, a2, b2)
+                    a2, b2 = (self.host_resize_np(im, hu, wu)[None] for im in (im_a, im_b))
+            else:
+                im_a = self._to_device(im_a).float()
+                im_b = self._to_device(im_b).float()
+                if im_a.ndim == 3:
+                    im_a, im_b = im_a[None], im_b[None]
+                with span("roma.preprocess"):
+                    a, b = self._preprocess(im_a, im_b, hs=hc, ws=wc)
+                    a2 = b2 = None
+                    if cfg.upsample_preds:
+                        a2, b2 = self._preprocess(im_a, im_b, hs=hu, ws=wu)
+            warp, certainty = self.match_prepped(a, b, a2, b2)
         if batched:
             return warp, certainty
         return warp[0], certainty[0]
@@ -395,16 +396,17 @@ class RomaMatcher:
         over the B B-images; idx: (2B,) bank rows; banks: from
         `build_resize_banks`. Equals `match_prepped` on host PIL resizes up
         to the one-uint8-level parity of the matrix resize."""
-        raw = self._to_device(raw)
-        idx = self._to_device(idx).long()
-        B = raw.shape[0] // 2
-        up = self.cfg.upsample_preds
-        with record_function("roma.preprocess"):
-            prepped = self._prep_raw_impl(raw, idx, *banks, up=up)
-        if not up:
-            return self.match_prepped(prepped[:B], prepped[B:])
-        xc, xu = prepped
-        return self.match_prepped(xc[:B], xc[B:], xu[:B], xu[B:])
+        with span("roma.match"):
+            raw = self._to_device(raw)
+            idx = self._to_device(idx).long()
+            B = raw.shape[0] // 2
+            up = self.cfg.upsample_preds
+            with span("roma.preprocess"):
+                prepped = self._prep_raw_impl(raw, idx, *banks, up=up)
+            if not up:
+                return self.match_prepped(prepped[:B], prepped[B:])
+            xc, xu = prepped
+            return self.match_prepped(xc[:B], xc[B:], xu[:B], xu[B:])
 
     @torch.inference_mode()
     def sample(self, warp, certainty, num: int = 10000,

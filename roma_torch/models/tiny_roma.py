@@ -28,7 +28,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from roma_torch.config import TinyRomaConfig
 from roma_torch.device import resolve_device
@@ -42,6 +41,7 @@ from roma_torch.ops.corr import coord_grid, corr_volume, pos_embed_expectation, 
 from roma_torch.ops.grid_sample import grid_sample_nchw
 from roma_torch.ops.resize import interpolate_bilinear, pad_to_multiple
 from roma_torch.utils.geometry import normalized_to_pixel
+from roma_torch.utils.profiling import span
 from roma_torch.utils.sampling import sample_matches
 
 SEARCH_MODES = ("full", "band", "row")
@@ -126,17 +126,17 @@ class TinyRoma(nn.Module):
         flows (B, h, w, 2) and certainty logits (B, h, w, 1), float32."""
         B, H, W, _ = im_a.shape
         dt = self.dtype
-        with record_function("tiny.xfeat"):
+        with span("tiny.xfeat"):
             fine, coarse = self.xfeat[0](torch.cat([im_a, im_b], dim=0).permute(0, 3, 1, 2))
         f0c, f1c = coarse[:B], coarse[B:]
         f0f, f1f = fine[:B], fine[B:]
 
-        with record_function("tiny.coarse_warp"):
+        with span("tiny.coarse_warp"):
             coarse_warp, cv = self.coarse_warp(f0c, f1c)
         # residual step: one target-image pixel in normalized units
         to_norm = torch.tensor([2 / W, 2 / H, 1.0]).to(im_a.device, non_blocking=True)
         matches = torch.cat([coarse_warp, torch.zeros_like(coarse_warp[..., :1])], dim=-1)
-        with record_function("tiny.coarse_matcher"):
+        with span("tiny.coarse_matcher"):
             for _ in range(self.cfg.coarse_iters):
                 warp_now = matches[..., :2]
                 f1c_warped = grid_sample_nchw(f1c, warp_now)
@@ -148,7 +148,7 @@ class TinyRoma(nn.Module):
         if self.training:
             corresps[8]["corr_volume"] = cv
 
-        with record_function("tiny.fine_matcher"):
+        with span("tiny.fine_matcher"):
             h4, w4 = f0f.shape[-2:]
             up = interpolate_bilinear(matches, (h4, w4)).detach()
             f1f_warped = grid_sample_nchw(f1f, up[..., :2])
@@ -189,21 +189,23 @@ class TinyRomaMatcher:
         (B, H, W) at the input resolution, from the coarse (1/8) result."""
         from PIL import Image
 
-        if isinstance(im_a, (str, bytes)) or hasattr(im_a, "__fspath__"):
-            im_a, im_b = load_image_pair(im_a, im_b)
-        if isinstance(im_a, Image.Image):
-            im_a, im_b = (np.asarray(im.convert("RGB"), np.float32) / 255.0
-                          for im in (im_a, im_b))
-        im_a, im_b = self._as_tensor(im_a), self._as_tensor(im_b)
-        if im_a.ndim == 3:
-            im_a, im_b = im_a[None], im_b[None]
-        B, H, W, _ = im_a.shape
-        corresps = self.forward(im_a, im_b)
-        with record_function("tiny.postprocess"):
-            flow = interpolate_bilinear(corresps[8]["flow"], (H, W))
-            cert = torch.sigmoid(interpolate_bilinear(corresps[8]["certainty"], (H, W))[..., 0])
-            grid = coord_grid(H, W, device=flow.device).expand(B, H, W, 2)
-            warp = torch.cat([grid, flow], dim=-1)
+        with span("tiny.match"):
+            if isinstance(im_a, (str, bytes)) or hasattr(im_a, "__fspath__"):
+                im_a, im_b = load_image_pair(im_a, im_b)
+            if isinstance(im_a, Image.Image):
+                im_a, im_b = (np.asarray(im.convert("RGB"), np.float32) / 255.0
+                              for im in (im_a, im_b))
+            im_a, im_b = self._as_tensor(im_a), self._as_tensor(im_b)
+            if im_a.ndim == 3:
+                im_a, im_b = im_a[None], im_b[None]
+            B, H, W, _ = im_a.shape
+            corresps = self.forward(im_a, im_b)
+            with span("tiny.postprocess"):
+                flow = interpolate_bilinear(corresps[8]["flow"], (H, W))
+                cert = torch.sigmoid(
+                    interpolate_bilinear(corresps[8]["certainty"], (H, W))[..., 0])
+                grid = coord_grid(H, W, device=flow.device).expand(B, H, W, 2)
+                warp = torch.cat([grid, flow], dim=-1)
         if batched:
             return warp, cert
         return warp[0], cert[0]

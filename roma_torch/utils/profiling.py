@@ -6,6 +6,10 @@ work one call does, counted by the dispatcher: FLOPs by
 `torch.utils.flop_counter.FlopCounterMode` (the kernels' ``roma::``
 operators through their FLOP formulas) and bytes by `BytesCounter`, the
 analogue of XLA's "bytes accessed", against the H100 SXM's peaks.
+
+`span` is how the port opens a named range, and `SpanLog` keeps the spans
+of one thread in memory, with the host syncs inside each: per-span host
+time without the profiler's slowdown.
 """
 
 from __future__ import annotations
@@ -13,9 +17,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 import time
+import warnings
 
 import torch
+from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -24,6 +31,121 @@ PEAK_BF16_FLOPS = 989e12   # tensor cores, bf16
 PEAK_BYTES = 3.35e12       # HBM3 bytes a second
 PEAK_EXPS = 3.9e12         # exponentials a second on the special-function units
                            # (the FlashAttention-3 paper's figure)
+
+
+# thread id -> the SpanLog active on that thread; empty unless one is
+_LOGS: dict[int, SpanLog] = {}
+
+
+class span(record_function):
+    """``with span(name):`` opens `torch.profiler.record_function(name)`
+    (what the profiler and its readers see), and where a `SpanLog` is
+    active on the calling thread also logs the span: its interval on the
+    host clock the profiler uses (CLOCK_REALTIME, read before the range
+    opens and after it closes, so the logged interval holds the
+    profiler's). With no log the only cost beyond the range is one check
+    of `_LOGS`."""
+
+    _logged: int | None = None   # the span's index in the active log while open
+
+    def __enter__(self):
+        if _LOGS:
+            log = _LOGS.get(threading.get_ident())
+            if log is not None:
+                self._log, self._logged = log, log._open(self.name)
+        return record_function.__enter__(self)
+
+    def __exit__(self, exc_type, exc_value, traceback):
+        record_function.__exit__(self, exc_type, exc_value, traceback)
+        if self._logged is not None:
+            self._log._close(self._logged)
+            self._log = self._logged = None
+
+
+@dataclasses.dataclass
+class Span:
+    request: int          # spans opened while another logged span is open share its request
+    name: str
+    parent: int | None    # index of the enclosing span in `SpanLog.spans`; None for a root
+    start_ns: int         # time.time_ns(), the clock of a profiled event's
+                          # trace_start_ns() + time_range
+    end_ns: int = 0
+    syncs: int = 0        # synchronizing calls reported while this was the innermost open span
+
+
+class SpanLog:
+    """Within ``with SpanLog():``, every `span` the entering thread opens is
+    appended to `spans`, in the order opened; spans of other threads are
+    not logged. A span opened with no logged span open starts a new
+    request. With ``syncs=True`` (where CUDA is initialised) sync debug
+    mode is "warn" inside, the previous mode restored on exit, and each
+    warning of a synchronizing call is counted on the innermost logged span
+    open when it fires, not shown. The log writes nothing out."""
+
+    def __init__(self, syncs: bool = False):
+        self.syncs = syncs
+        self.spans: list[Span] = []
+        self._stack: list[int] = []
+        self._requests = 0
+
+    def _open(self, name: str) -> int:
+        t = time.time_ns()
+        if self._stack:
+            parent = self._stack[-1]
+            request = self.spans[parent].request
+        else:
+            parent, request = None, self._requests
+            self._requests += 1
+        self.spans.append(Span(request, name, parent, t))
+        self._stack.append(len(self.spans) - 1)
+        return self._stack[-1]
+
+    def _close(self, i: int) -> None:
+        self.spans[i].end_ns = time.time_ns()
+        self._stack.pop()
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message) and threading.get_ident() == self._thread:
+            if self._stack:
+                self.spans[self._stack[-1]].syncs += 1
+            return
+        self._shown(message, category, filename, lineno, file, line)
+
+    def roots(self) -> list[Span]:
+        return [s for s in self.spans if s.parent is None]
+
+    def syncs_by_span(self) -> dict[str, int]:
+        """Syncs counted on each span name, innermost span only."""
+        out: dict[str, int] = {}
+        for s in self.spans:
+            if s.syncs:
+                out[s.name] = out.get(s.name, 0) + s.syncs
+        return out
+
+    def __enter__(self):
+        self._thread = threading.get_ident()
+        self._outer = _LOGS.get(self._thread)
+        _LOGS[self._thread] = self
+        self._mode = None
+        if self.syncs:
+            self._warnings = warnings.catch_warnings()
+            self._warnings.__enter__()
+            warnings.filterwarnings("always", message=".*synchroniz")
+            self._shown, warnings.showwarning = warnings.showwarning, self._show
+            if torch.cuda.is_initialized():
+                self._mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        if self._mode is not None:
+            torch.cuda.set_sync_debug_mode(self._mode)
+        if self.syncs:
+            self._warnings.__exit__(*exc)
+        if self._outer is None:
+            del _LOGS[self._thread]
+        else:
+            _LOGS[self._thread] = self._outer
 
 
 def enable_compilation_cache(path: str | None = None) -> dict[str, str]:

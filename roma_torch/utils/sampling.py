@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from roma_torch.utils.kde import kde
+from roma_torch.utils.profiling import span
 
 
 def gumbel_topk(weights: torch.Tensor, k: int,
@@ -32,19 +33,21 @@ def sample_matches(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Draw `num` balanced correspondences from a dense warp (..., 4) with
     certainty (...,) in [0, 1]. Returns (matches (num, 4), certainty (num,))."""
-    matches = matches.reshape(-1, 4)
-    certainty = certainty.reshape(-1).float()
-    certainty = torch.where(certainty > sample_thresh, torch.ones_like(certainty), certainty)
-    if not balanced:
-        idx = gumbel_topk(certainty, num, generator)
-        return matches[idx], certainty[idx]
-    pool = min(expansion_factor * num, matches.shape[0])
-    good_idx = gumbel_topk(certainty, pool, generator)
-    good_matches = matches[good_idx]
-    good_certainty = certainty[good_idx]
-    density = kde(good_matches, std=0.1)
-    p = 1.0 / (density + 1.0)
-    # need ~10 near-perfect neighbours to count as a populated region
-    p = torch.where(density < 10, torch.full_like(p, 1e-7), p)
-    final_idx = gumbel_topk(p, min(num, pool), generator)
-    return good_matches[final_idx], good_certainty[final_idx]
+    with span("roma.sample"):
+        matches = matches.reshape(-1, 4)
+        certainty = certainty.reshape(-1).float()
+        certainty = torch.where(certainty > sample_thresh, torch.ones_like(certainty), certainty)
+        if not balanced:
+            idx = gumbel_topk(certainty, num, generator)
+            return matches[idx], certainty[idx]
+        pool = min(expansion_factor * num, matches.shape[0])
+        good_idx = gumbel_topk(certainty, pool, generator)
+        good_matches = matches[good_idx]
+        good_certainty = certainty[good_idx]
+        with span("roma.sample.kde"):
+            density = kde(good_matches, std=0.1)
+        p = 1.0 / (density + 1.0)
+        # need ~10 near-perfect neighbours to count as a populated region
+        p = torch.where(density < 10, torch.full_like(p, 1e-7), p)
+        final_idx = gumbel_topk(p, min(num, pool), generator)
+        return good_matches[final_idx], good_certainty[final_idx]

@@ -51,7 +51,8 @@ def _imports(path):
 def test_port_imports_no_jax_or_jax_package():
     files = sorted((REPO / "roma_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
                                                           REPO / "match_ab.py",
-                                                          REPO / "vit_step.py"]
+                                                          REPO / "vit_step.py",
+                                                          REPO / "span_log.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"roma_torch/models/tiny_roma.py", "roma_torch/models/xfeat.py",
@@ -79,7 +80,7 @@ def test_port_imports_no_jax_or_jax_package():
             "roma_torch/models/resnet.py", "roma_torch/experiments/export_tiny.py",
             "roma_torch/demo/demo_match.py", "roma_torch/demo/demo_match_tiny.py",
             "roma_torch/demo/demo_fundamental.py", "roma_torch/demo/demo_3D_effect.py",
-            "match_ab.py"} <= names
+            "match_ab.py", "span_log.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
