@@ -39,11 +39,16 @@
    [0, 1], sampling);
 6. match_raw on 2 pairs of uint8 canvases from two source sizes, resized
    on the device: counted (the same launches as match()), timed, held
-   against match_prepped on host PIL resizes, then sample_batched; then the
+   against match_prepped on host PIL resizes, then sample_batched (10,000
+   matches a pair, its KDEs counted from zero: one a pair); then the
    debug-size model on the GPU against the same weights on the CPU, with
    its flow differences per scale of both passes and the match decoder's
    top-2 class-logit margins where the scale-16 flows differ;
-7. Tiny RoMa v1 (fused_kernel=True) on 8 pairs at 480x640, counted the same
+7. the balanced sampler's KDE (roma::kde) at its two pool sizes (40,000
+   and 20,000 points) and ragged ones against a float64 sum and beside the
+   plain version, bitwise repeatable, timed beside its bound and the plain
+   version; then
+   Tiny RoMa v1 (fused_kernel=True) on 8 pairs at 480x640, counted the same
    way (one correlation-softmax launch, nothing else), timed, beside the
    same weights with fused_kernel=False, plus one 1056x1920 pair and a
    small GPU-vs-CPU check;
@@ -193,6 +198,7 @@ KERNELS = {
                        "roma_torch/csrc/flash_attn_bwd.cu"),
     "flash_attn_dq": ("jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
                       "roma_torch/csrc/flash_attn_bwd.cu"),
+    "kde": ("none (roma_tpu/utils/kde.py is plain jnp)", "roma_torch/csrc/kde.cu"),
 }
 # the training step: full RoMa at 560^2, batch 2, bf16 (1 warm-up + 3 timed)
 TRAIN_BATCH = 2
@@ -852,6 +858,73 @@ def check_corr_softmax(dev, gen):
                          bound_ms=b_ms, bound_by=b_by))
         del f0, f1, g0, g1, q, k, v, vb, qb, kb, lib, got
         torch.cuda.empty_cache()
+    return rows
+
+
+KDE_TOL = 2e-5  # relative, against float64; a serial float32 sum reads 7e-6 at N = 40,000
+
+
+def kde_pool(n: int, gen, dev):
+    """(n, 4) float32 match coordinates in [-1, 1] like a dense warp's: x_B a
+    smooth function of x_A."""
+    import torch
+
+    a = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
+    b = (0.8 * a + 0.15 * torch.sin(3.0 * a.flip(-1)) + 0.05).clamp(-1, 1)
+    return torch.cat([a, b], -1)
+
+
+def check_kde(dev, gen):
+    """The balanced sampler's KDE (`roma::kde`, std 0.1) at its two pool
+    sizes, 4 x 10,000 (full RoMa, `calls` PAIRS: `run_match_raw` samples
+    10,000 matches a pair) and 4 x 5,000 (Tiny RoMa), against the density
+    summed in float64 over direct differences (max relative error <=
+    KDE_TOL), bitwise the same in two runs, and for correctness only at
+    N = 1, 5, 127 and 2,049 and on uniform points. Beside the float64 sum,
+    the relative difference from the plain version (`vs_plain`, reported).
+    Times the kernel (median of 5 rounds of 20 calls) and the plain version
+    on the card; no PyTorch call computes the same function (library_ms
+    None). The bound counts the exponentials, one a pair; bytes: the points
+    in, the densities out."""
+    import torch
+
+    from roma_torch.kernels import kde as kk
+
+    def f64(x, tile=1024):
+        x = x.double()
+        return torch.cat([torch.exp(-((x[i:i + tile, None] - x[None]) ** 2).sum(-1) / 0.02)
+                          .sum(-1) for i in range(0, x.shape[0], tile)])
+
+    vs_plain = {}
+
+    def rel_err(x, what):
+        got = kk.op(x, 0.1, 2048)
+        again = kk.op(x, 0.1, 2048)
+        ref = f64(x)
+        plain = kk.kde_plain(x, 0.1)
+        torch.cuda.synchronize()
+        fail_if(not torch.equal(got, again), f"kde {what}: two runs differ")
+        err = ((got.double() - ref).abs() / ref).max().item()
+        fail_if(not math.isfinite(err) or err > KDE_TOL, f"kde {what}: max_rel_err {err}")
+        vs_plain[what] = ((got - plain).abs() / plain).max().item()
+        return err
+
+    ragged = {f"{kind} {n}": rel_err(x, f"{kind} N={n}")
+              for n in (1, 5, 127, 2049)
+              for kind, x in (("warp", kde_pool(n, gen, dev)),
+                              ("uniform", torch.rand((n, 4), generator=gen, device=dev) * 2 - 1))}
+    rows = []
+    for label, n, calls in (("full RoMa pool", 40000, PAIRS), ("Tiny RoMa pool", 20000, 0)):
+        x = kde_pool(n, gen, dev)
+        u = torch.rand((n, 4), generator=gen, device=dev) * 2 - 1
+        err = {"warp": rel_err(x, f"{label} warp"), "uniform": rel_err(u, f"{label} uniform")}
+        b_ms, b_by = bound(n * 16.0 + n * 4.0, 0.0, float(n) * n)
+        rounds = cuda_ms_rounds(lambda: kk.op(x, 0.1, 2048), 20)
+        rows.append(dict(shape=label, dims=[n, 4], calls=calls, splits=kk.splits(n),
+                         max_abs_err=max(*err.values(), *ragged.values()), tol=f"{KDE_TOL:.0e} relative",
+                         err=err, ragged=ragged, vs_plain=vs_plain, ms=median(rounds), ms_rounds=rounds,
+                         plain_ms=cuda_ms(lambda: kk.kde_plain(x, 0.1), 3, 1),
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -3849,7 +3922,9 @@ def run_match_raw(matcher, card: str) -> dict:
     with the JAX package's statistical bounds (mean |dwarp| < 2e-2, its 90th
     percentile < 5e-2, mean |dcert| < 2e-2: one-uint8-level input
     differences move a random-weight model chaotically at a few pixels),
-    and `sample_batched` on the output."""
+    and `sample_batched` on the output (10,000 matches a pair, the
+    benchmark's RoMa cells' count), its launches counted from zero
+    (`sample_launches`: one KDE a pair)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -3896,10 +3971,14 @@ def run_match_raw(matcher, card: str) -> dict:
     fail_if(not cmp["within"], f"match_raw disagrees with match_prepped: {cmp}")
 
     gens = [torch.Generator(device=warp.device).manual_seed(s) for s in range(PAIRS)]
-    m, c = matcher.sample_batched(warp, cert, 5000, gens)
-    fail_if(tuple(m.shape) != (PAIRS, 5000, 4) or tuple(c.shape) != (PAIRS, 5000),
+    reset_launches()
+    m, c = matcher.sample_batched(warp, cert, 10000, gens)
+    torch.cuda.synchronize()
+    res["sample_launches"] = dict(LAUNCHES)
+    fail_if(LAUNCHES["kde"] != PAIRS, f"sample_batched: {LAUNCHES['kde']} KDEs, expected {PAIRS}")
+    fail_if(tuple(m.shape) != (PAIRS, 10000, 4) or tuple(c.shape) != (PAIRS, 10000),
             "sample_batched() shape")
-    ref = matcher.sample(warp[1], cert[1], 5000, torch.Generator(device=warp.device).manual_seed(1))
+    ref = matcher.sample(warp[1], cert[1], 10000, torch.Generator(device=warp.device).manual_seed(1))
     fail_if(not (torch.equal(m[1], ref[0]) and torch.equal(c[1], ref[1])),
             "sample_batched() differs from sample() with the same generator")
     return res
@@ -4039,6 +4118,10 @@ def main() -> int:
               f"{r['err'].get('fp32 randn', float('nan')):.2e}), SDPA bf16 flash {r['library_ms']:.4f} ms, SDPA fp32 "
               f"{r['library_fp32_ms']:.4f} ms", flush=True)
     print(f"[{card}] corr_softmax ragged: {rows['corr_softmax'][0]['ragged']}", flush=True)
+    rows["kde"] = check_kde(dev, gen)
+    print_rows(card, rows, "kde")
+    print(f"[{card}] kde ragged (max relative error): {rows['kde'][0]['ragged']}; against the "
+          f"plain version (max relative difference): {rows['kde'][0]['vs_plain']}", flush=True)
     report["tiny"] = run_tiny(dev, gen, card, out_dir if args.profile else None)
     rows["windowed_sample"] = check_windowed_sample(dev, gen, cfg)
     print_rows(card, rows, "windowed_sample")
@@ -4060,7 +4143,8 @@ def main() -> int:
     path_launches = dict(launches, corr_softmax=report["tiny"]["launches"]["corr_softmax"],
                          windowed_sample=report["smooth_warp"]["launches"]["windowed_sample"],
                          flash_attn_dkv=train["flash_attn_dkv"],
-                         flash_attn_dq=train["flash_attn_dq"])
+                         flash_attn_dq=train["flash_attn_dq"],
+                         kde=report["match_raw"]["sample_launches"]["kde"])
     kernels = [summarize(name, rows[name], path_launches[name]) for name in KERNELS]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

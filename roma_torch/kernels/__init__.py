@@ -11,6 +11,7 @@
 | dw_block_mm     | csrc/dw_block_mm.cu     | ops/pallas/depthwise.py::dw5x5_affine_relu_mm       |
 | flash_attn_dkv  | csrc/flash_attn_bwd.cu  | pallas/ops/tpu/flash_attention.py::_flash_attention_bwd_dkv |
 | flash_attn_dq   | csrc/flash_attn_bwd.cu  | pallas/ops/tpu/flash_attention.py::_flash_attention_bwd_dq  |
+| kde             | csrc/kde.cu             | none: roma_tpu/utils/kde.py is plain jnp            |
 
 Each forward kernel is an operator ``roma::<name>`` (`runtime.define_op`;
 K3 twice, ``flash_attn`` and ``flash_attn_lse``), registered when this
@@ -26,13 +27,13 @@ from roma_torch.kernels.runtime import LAUNCHES, reset_launches
 
 # the wrappers register their operators as they are imported
 from roma_torch.kernels import (attention, corr_softmax, dw_affine_relu,  # noqa: E402,F401
-                                dw_block_mm, dw_chain, local_corr, windowed_sample)
+                                dw_block_mm, dw_chain, kde, local_corr, windowed_sample)
 
 OPS = {
     "local_corr": local_corr.op, "dw_chain": dw_chain.op, "flash_attn": attention.op,
     "flash_attn_lse": attention.op_lse, "corr_softmax": corr_softmax.op,
     "windowed_sample": windowed_sample.op, "dw_affine_relu": dw_affine_relu.op,
-    "dw_block_mm": dw_block_mm.op,
+    "dw_block_mm": dw_block_mm.op, "kde": kde.op,
 }
 
 # each operator's plain version (its CPU implementation)
@@ -42,7 +43,7 @@ PLAIN = {
     "corr_softmax": corr_softmax.fused_pos_embed_plain,
     "windowed_sample": windowed_sample.smooth_plain,
     "dw_affine_relu": dw_affine_relu.dw5x5_affine_relu_plain_nchw,
-    "dw_block_mm": dw_chain.block_plain_nchw,
+    "dw_block_mm": dw_chain.block_plain_nchw, "kde": kde.kde_plain,
 }
 
 __all__ = ["LAUNCHES", "OPS", "PLAIN", "reset_launches"]

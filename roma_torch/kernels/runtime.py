@@ -58,6 +58,7 @@ SOURCES = {
     "dw_affine_relu": "dw_affine_relu.cu",
     "dw_block_mm": "dw_block_mm.cu",
     "flash_attn_bwd": "flash_attn_bwd.cu",
+    "kde": "kde.cu",
 }
 
 NVCC_FLAGS = [

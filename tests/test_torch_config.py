@@ -119,7 +119,7 @@ def test_kernel_build_is_lazy_and_named_by_content():
 
     assert set(runtime.SOURCES) == {"local_corr", "dw_chain", "flash_attn", "corr_softmax",
                                     "windowed_sample", "dw_affine_relu", "dw_block_mm",
-                                    "flash_attn_bwd"}
+                                    "flash_attn_bwd", "kde"}
     # one counter a kernel: flash_attn_bwd.cu holds K8 and K9
     assert set(LAUNCHES) == set(runtime.SOURCES) - {"flash_attn_bwd"} | {
         "flash_attn_dkv", "flash_attn_dq"}

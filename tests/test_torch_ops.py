@@ -186,11 +186,12 @@ def _op_inputs():
         "dw_affine_relu": (r(1, 8, 6, 7, dt=bf), r(5, 5, 8, dt=bf), r(8), r(8)),
         "dw_block_mm": (r(1, 8, 6, 7, dt=bf), r(5, 5, 8, dt=bf), r(8), r(8), r(8, 8, dt=bf),
                         r(8)),
+        "kde": (u(37, 4), 0.1, 16),
     }
 
 
 OP_NAMES = ["local_corr", "dw_chain", "flash_attn", "flash_attn_lse", "corr_softmax",
-            "windowed_sample", "dw_affine_relu", "dw_block_mm"]
+            "windowed_sample", "dw_affine_relu", "dw_block_mm", "kde"]
 
 
 @pytest.mark.parametrize("name", OP_NAMES)
