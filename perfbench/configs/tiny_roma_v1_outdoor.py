@@ -2,7 +2,10 @@
 from host images (uint8 images uploaded and made float in [0, 1],
 `match(batched=True)`, then per pair `sample` and the matches read back,
 or the dense warp left on the device), and its plain reference
-(`perfbench/reference/tiny.py`)."""
+(`perfbench/reference/tiny.py`). Where the traffic keeps calls in flight
+(`in_flight` > 1, the warp left on the device), the images come from
+pinned host memory, as a loader with `pin_memory` hands them, and are
+uploaded without blocking the host."""
 
 from __future__ import annotations
 
@@ -43,16 +46,25 @@ class Program:
         self.device = torch.device(device)
         self.matcher = TinyRomaMatcher(model, device=self.device)
         self.num = traffic["num"]
+        self.ahead = traffic.get("in_flight", 1) > 1 and self.device.type == "cuda"
+        self.pinned = {}
         self.gens = [torch.Generator(device=self.device) for _ in range(traffic["pairs"])]
 
     def call(self, batch, seeds, syncs=None) -> Outputs:
         with record_function("bench.upload"):
-            x = torch.from_numpy(batch.raw).to(self.device).float().div_(255.0)
+            if self.ahead:
+                raw = self.pinned.get(id(batch))
+                if raw is None:
+                    raw = self.pinned[id(batch)] = torch.from_numpy(batch.raw).pin_memory()
+                x = raw.to(self.device, non_blocking=True).float().div_(255.0)
+            else:
+                x = torch.from_numpy(batch.raw).to(self.device).float().div_(255.0)
         B = x.shape[0] // 2
         with counted(syncs):
             warp, cert = self.matcher.match(x[:B], x[B:], batched=True)
         if not self.num:
-            synchronize(self.device)
+            if not self.ahead:
+                synchronize(self.device)
             return Outputs(warp, cert)
         for g, s in zip(self.gens, seeds):
             g.manual_seed(s)

@@ -24,6 +24,8 @@ lower precision shows in the warp on some seeds and in the certainty on
 others, and in neither alone on every seed). Besides them every pair
 reports the plain departures (warp_q50, warp_q90, cert_mean) and what the
 reference's output looks like, for the record. A limits file names the numbers a cell compares and their limits.
+A training cell's configuration module brings its own numbers
+(`perfbench/core/train.py`); `verdict` holds them to the limits alike.
 """
 
 from __future__ import annotations
@@ -91,13 +93,14 @@ def judge(outputs, ref, b16, seeds, num: int, thresh: float) -> list[dict]:
 
 def aggregate(pairs: list[dict]) -> dict[str, float]:
     """Every per-pair number's largest value over the pairs, its median
-    under the name with `_mid`, and dense_rel_mid."""
+    under the name with `_mid`, and dense_rel_mid where the pairs are dense
+    warps."""
     out = {}
     for name in pairs[0] if pairs else ():
         vals = [p[name] for p in pairs]
         out[name] = max(vals)
         out[name + "_mid"] = statistics.median(vals)
-    if pairs:
+    if "warp_rel_mid" in out:
         out["dense_rel_mid"] = max(out["warp_rel_mid"], out["cert_rel_mid"])
     return out
 

@@ -8,11 +8,26 @@ synchronized on the device where the cell samples nothing. The window
 opens after set-up (kernels built or found, weights, inputs, warm-up
 calls) and closes at the end of the first call that ends `seconds` after
 it opened and after a call of every batch of the pool, so every call in it
-is whole.
+is whole. A traffic file may set `in_flight` (default 1) for a cell whose
+calls leave their outputs on the device: the host then dispatches up to
+that many calls ahead of the one it waits for, and when the time is up it
+sends nothing more, waits for all that was sent and reads the clock after
+that wait, so the window holds all of that work and all of that time.
+
+A configuration's module may bring its own inputs and check; where it
+defines none of these hooks the cell runs as the matching cells do:
+- `make_pool(traffic, seed, device)`: the pool of batches, in place of
+  `inputs.make_pool`;
+- `judge(cell, seed, device, pool, observed, count_flops)`, run after the
+  program is released, returns the numbers for `check.verdict` and one
+  call's FLOPs (or None), in place of `compare`; `observed` is what the
+  program's `observed()` returned while it was still alive (after the
+  window and the traced calls): host data only.
 """
 
 from __future__ import annotations
 
+import collections
 import gc
 import statistics
 import sys
@@ -60,17 +75,23 @@ def sample_seeds(seed: int, i: int, pairs: int) -> list[int]:
     return [derive(seed, "sample", i, p) for p in range(pairs)]
 
 
-def window(call, seconds: float, pool_n: int, checked: list[int]):
-    """The timed closed loop: each call's seconds, the window's seconds, and
-    the last outputs of each checked batch with its call's index. What
-    set-up made is kept out of the collector's sweeps meanwhile."""
+def window(call, seconds: float, pool_n: int, checked: list[int], in_flight: int = 1,
+           device=None):
+    """The timed closed loop: each call's seconds (with calls in flight, the
+    host's seconds to dispatch it), the window's seconds, and the last
+    outputs of each checked batch with its call's index. What set-up made
+    is kept out of the collector's sweeps meanwhile."""
     gc.collect()
     gc.freeze()
-    times, kept = [], {}
+    times, kept, fences = [], {}, collections.deque()
     i, start = 0, time.perf_counter()
     while True:
         c0 = time.perf_counter()
         out = call(i)
+        if in_flight > 1:
+            fences.append(fence(device))
+            if len(fences) > in_flight:
+                fences.popleft().synchronize()
         c1 = time.perf_counter()
         times.append(c1 - c0)
         if i % pool_n in checked:
@@ -79,8 +100,25 @@ def window(call, seconds: float, pool_n: int, checked: list[int]):
         i += 1
         if c1 - start >= seconds and len(times) >= max(2, pool_n):
             break
+    if in_flight > 1:
+        synchronize(device)
+        c1 = time.perf_counter()
     gc.unfreeze()
     return times, c1 - start, kept
+
+
+class _Done:
+    def synchronize(self) -> None:
+        pass
+
+
+def fence(device):
+    """An event recorded after the work sent so far (a no-op off the card)."""
+    if torch.device(device).type != "cuda":
+        return _Done()
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
 
 
 def traced_calls(call, first: int, k: int, dev) -> tuple[trace.Profile, float | None]:
@@ -157,7 +195,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
     program = make_program(cell, state, dev)
     del state
     phases["program"] = time.time() - t_start
-    pool = inputs.make_pool(t, seed, dev)
+    pool = getattr(cell.cfgmod, "make_pool", inputs.make_pool)(t, seed, dev)
     phases["inputs"] = time.time() - t_start
 
     def call(i: int, syncs=None):
@@ -169,20 +207,25 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: fl
         phases[f"warmup{i}"] = time.time() - t_start
     print("set-up, seconds since the process started: "
           + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()), file=sys.stderr, flush=True)
-    checked = sorted(int(b) for b in torch.randperm(
-        t["pool"], generator=torch.Generator().manual_seed(derive(seed, "checked")))[:t["checked"]])
+    order = torch.randperm(t["pool"], generator=torch.Generator().manual_seed(derive(seed, "checked")))
+    checked = sorted(int(b) for b in order[:t.get("checked", 0)])
 
     t_open = time.time()
-    times, window_s, kept = window(call, seconds, t["pool"], checked)
+    times, window_s, kept = window(call, seconds, t["pool"], checked, t.get("in_flight", 1), dev)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     prof = syncs_per_call = None
     if traced:
         prof, syncs_per_call = traced_calls(call, len(times), t["profiled_calls"], dev)
+    judge = getattr(cell.cfgmod, "judge", None)
+    observed = program.observed() if judge else None
     del program, call
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    numbers, flops = compare(cell, seed, dev, pool, kept, traced)
+    if judge:
+        numbers, flops = judge(cell, seed, dev, pool, observed, traced)
+    else:
+        numbers, flops = compare(cell, seed, dev, pool, kept, traced)
     correct, checks = check.verdict(numbers, cell.limits)
 
     result = {"correct": correct, "attempted": t["pairs"] * len(times), "failed": 0}

@@ -3,13 +3,17 @@ per-layer readers share.
 
 `Profile` holds what the readers need and nothing of the profiler:
 - `device_ops`: every operation that ran on the device (kernels, copies,
-  fills) with its start and end (us) and the host ranges (record_function
-  names) open when the host launched it;
+  fills) with its start and end (us), when the host launched it, whether
+  the thread that made the calls launched it (autograd launches a
+  backward from a device thread of its own), and the host ranges
+  (record_function names) of the calls' thread open at its launch, so an
+  op launched by another thread is put under the calls' ranges open then;
 - `host`: the host events of the thread that made the calls (ranges, ops
   and runtime calls), for labelling idle gaps;
 - `calls`: the start and end (us) of each profiled call (the `bench.call`
   ranges);
-- `launches`: kernel launches the host made inside those calls.
+- `launches`: kernel launches the host made inside those calls, on any
+  thread.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ class DeviceOp:
     start: float
     end: float
     ranges: tuple = ()
+    launch: float | None = None   # when the host launched it (us), where the trace says
+    calls_thread: bool = True     # launched by the thread that made the calls
 
 
 @dataclasses.dataclass
@@ -69,6 +75,12 @@ def busy_us(p: Profile) -> float:
     if not p.calls:
         return 0.0
     return union_us([(op.start, op.end) for op in p.device_ops], p.calls[0][0], p.calls[-1][1])
+
+
+def in_calls(p: Profile) -> list:
+    """The device ops launched inside the profiled calls, by any thread."""
+    return [op for op in p.device_ops if op.launch is not None
+            and any(c0 <= op.launch <= c1 for c0, c1 in p.calls)]
 
 
 def span_device_ms(p: Profile, pattern: str) -> float | None:
@@ -139,18 +151,20 @@ def from_torch(prof) -> Profile:
               or e.name.startswith(("roma.", "tiny.", "bench.", "eval."))]
     range_ids = {id(e) for e in ranges}
     range_names = {e.name for e in ranges}
-    launch_at = {e.id: e.time_range.start for e in cpu if e.name.startswith(("cuda", "cu"))}
+    launch_at = {e.id: (e.time_range.start, e.thread) for e in cpu
+                 if e.name.startswith(("cuda", "cu"))}
     ops = []
     for e in events:
         if e.device_type != DeviceType.CUDA or e.name in range_names \
                 or getattr(e, "is_user_annotation", False):
             continue
-        t = launch_at.get(e.id)
+        t, by = launch_at.get(e.id, (None, None))
         opened = () if t is None else tuple(r.name for r in ranges
                                             if r.time_range.start <= t <= r.time_range.end)
-        ops.append(DeviceOp(e.name, e.time_range.start, e.time_range.end, opened))
+        ops.append(DeviceOp(e.name, e.time_range.start, e.time_range.end, opened, t,
+                            by is None or by == thread))
     lo, hi = (calls[0][0], calls[-1][1]) if calls else (0.0, 0.0)
-    launches = sum(1 for e in mine if e.name in LAUNCH_CALLS and lo <= e.time_range.start <= hi)
+    launches = sum(1 for e in cpu if e.name in LAUNCH_CALLS and lo <= e.time_range.start <= hi)
     host = [(e.name, e.time_range.start, e.time_range.end, id(e) in range_ids) for e in mine
             if e.time_range.end >= lo and e.time_range.start <= hi]
     return Profile(device_ops=ops, host=host, calls=calls, launches=launches)

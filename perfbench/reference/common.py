@@ -15,6 +15,19 @@ def no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+class _Rounded(torch.autograd.Function):
+    """`round(x)` forward, `round(gradient)` backward."""
+
+    @staticmethod
+    def forward(ctx, x, round_):
+        ctx.round_ = round_
+        return round_(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.round_(grad), None
+
+
 class Precision:
     """The precision the reference computes in: "float32" everywhere (the
     reference); or the operands of every product the program computes in
@@ -30,13 +43,19 @@ class Precision:
         self.mode = mode
 
     def low(self, x: torch.Tensor) -> torch.Tensor:
+        """An operand rounded to the precision; where autograd records, its
+        gradient is rounded alike on the way back, as a program's backward
+        in that precision rounds it."""
         x = x.float()
+        if self.mode == "float32":
+            return x
+        return _Rounded.apply(x, self._round)
+
+    def _round(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "bfloat16":
             return x.to(torch.bfloat16).float()
-        if self.mode == "float8":
-            scale = x.abs().amax().clamp_min(1e-30) / FP8_MAX
-            return (x / scale).to(torch.float8_e4m3fn).float() * scale
-        return x
+        scale = x.abs().amax().clamp_min(1e-30) / FP8_MAX
+        return (x / scale).to(torch.float8_e4m3fn).float() * scale
 
     def kde(self, x: torch.Tensor) -> torch.Tensor:
         """The KDE's coordinates: float32 in the program, float8 in the control."""
